@@ -13,8 +13,8 @@ Replaces the reference's ``mlflow run .`` + hydra-override surface
     python -m anime_recommendations_tpu.cli serve --port 8080
     python -m anime_recommendations_tpu.cli bench
 
-Every subcommand accepts --config <yaml> and repeated --set section.key=value
-overrides (hydra-style, config.py).
+Every subcommand accepts --config <json|yaml> and repeated --set
+section.key=value overrides (hydra-style, config.py).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from anime_recommendations_tpu.config import Config
 
 def _base_parser(sub, name, help_):
     p = sub.add_parser(name, help=help_)
-    p.add_argument("--config", default=None, help="YAML config path")
+    p.add_argument("--config", default=None, help="JSON or YAML config path")
     p.add_argument(
         "--set", dest="overrides", action="append", default=[],
         metavar="section.key=value", help="config override (repeatable)",
@@ -40,7 +40,7 @@ def _base_parser(sub, name, help_):
 
 def load_config(args) -> Config:
     if args.config:
-        cfg = Config.from_yaml(args.config, overrides=args.overrides)
+        cfg = Config.from_file(args.config, overrides=args.overrides)
     else:
         cfg = Config().with_overrides(args.overrides)
     if args.run_dir:
@@ -55,6 +55,9 @@ def make_runner(args):
 
 
 def main(argv=None) -> int:
+    from anime_recommendations_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",

@@ -3,9 +3,11 @@
 Replaces the reference's three redundant config tiers (hydra YAML ->
 MLproject string params -> per-step argparse with strtobool/literal_eval;
 see /root/reference/config/config.yaml and e.g. neural_network.py:292-557)
-with one set of dataclasses. Values can be loaded from YAML and overridden
-with dotted ``section.key=value`` strings, so the reference's hydra-style CLI
-overrides keep working in spirit without any string re-parsing.
+with one set of dataclasses. Values can be loaded from a JSON or YAML file
+and overridden with dotted ``section.key=value`` strings, so the
+reference's hydra-style CLI overrides keep working in spirit. Override
+values parse as JSON (numbers, booleans, lists, null) and otherwise stay
+plain strings; YAML files need PyYAML, which is imported only for them.
 
 Defaults mirror /root/reference/config/config.yaml so that a run with no
 arguments reproduces the reference's published configuration.
@@ -14,11 +16,10 @@ arguments reproduces the reference's published configuration.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Sequence
-
-import yaml
 
 
 @dataclass
@@ -94,7 +95,8 @@ class ModelConfig:
     # trainer only; the sharded trainer ignores it for now.
     device_loop: bool = True
     # "adam" (exact Keras parity), "fused_adam" (same dense-Adam semantics
-    # via one Pallas pass per table — bandwidth-floor fast path), or
+    # computed from the gathered rows' gradients), "fused_adam_bf16m"
+    # (fused_adam with bf16-stored table moments), or
     # "lazy_adam" (row-sparse Adam: only batch-touched embedding rows get
     # moments/decay/updates — faster at scale, standard
     # production-recommender semantics). The reference artifact metadata
@@ -113,7 +115,8 @@ class ModelConfig:
 
 @dataclass
 class ParallelConfig:
-    """Device mesh layout (replaces TPUStrategy, neural_network.py:142-144)."""
+    """Device mesh layout (replaces the reference's distribution strategy,
+    neural_network.py:142-144)."""
 
     data_axis: int = -1    # -1: infer from available devices
     model_axis: int = 1
@@ -223,7 +226,7 @@ class MainConfig:
     random_seed: int = 42
     raise_flow_error: bool = True
     run_dir: str = "runs"
-    # Resume training from the latest Orbax checkpoint in the run dir
+    # Resume training from the latest checkpoint in the run dir
     # (epoch-level resume — a capability the reference lacks).
     resume_training: bool = False
 
@@ -241,10 +244,16 @@ class Config:
     # ---- construction helpers -------------------------------------------------
 
     @classmethod
-    def from_yaml(cls, path: str | Path, overrides: Sequence[str] = ()) -> "Config":
-        raw = yaml.safe_load(Path(path).read_text()) or {}
-        cfg = cls.from_dict(raw)
-        return cfg.with_overrides(overrides)
+    def from_file(cls, path: str | Path, overrides: Sequence[str] = ()) -> "Config":
+        """Load a ``.json`` config, or a YAML one (any other suffix)."""
+        path = Path(path)
+        if path.suffix == ".json":
+            raw = json.loads(path.read_text()) or {}
+        else:
+            import yaml
+
+            raw = yaml.safe_load(path.read_text()) or {}
+        return cls.from_dict(raw).with_overrides(overrides)
 
     @classmethod
     def from_dict(cls, raw: dict[str, Any]) -> "Config":
@@ -271,14 +280,24 @@ class Config:
                 raise ValueError(f"Override key must be section.key: {dotted!r}")
             section, key = parts
             sub = getattr(cfg, section)
-            _set_field(sub, key, yaml.safe_load(value))
+            _set_field(sub, key, _parse_value(value))
         return cfg
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
 
     def to_yaml(self, path: str | Path) -> None:
+        import yaml
+
         Path(path).write_text(yaml.safe_dump(self.to_dict(), allow_unicode=True))
+
+
+def _parse_value(text: str) -> Any:
+    """An override's value: JSON where it parses, else the plain string."""
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        return text.strip()
 
 
 def _set_field(obj: Any, key: str, value: Any) -> None:

@@ -6,7 +6,7 @@ is simply the LAST ``test_size`` rows. (The reference's second shuffle with
 seed 73 at :160 only feeds a shape read — its result is otherwise unused —
 so it is not reproduced; SURVEY.md §3.2 records this as dead code.)
 
-TPU-first iteration: every batch has the same static shape (XLA compiles
+Static-shape iteration: every batch has the same static shape (XLA compiles
 once). The final ragged batch is padded and carries a weight vector that
 zeroes padded rows in the loss, matching Keras' inclusion of the remainder
 batch without introducing dynamic shapes.

@@ -1,32 +1,29 @@
-"""Pallas kernel: fused sparse-gradient scatter + L2 decay + Adam update.
+"""Sparse-gradient scatter + L2 decay + Adam update of one embedding table.
 
-Replaces the two dominant fusions of the embedding-table update (profiled in
-NOTES_PERF.md): XLA materializes a dense gradient via random-row scatter-add
-(~200-290 GB/s) and then re-streams grad+mu+nu+W for Adam. Here ONE pass
-over the table does everything:
+The training step differentiates the loss w.r.t. the GATHERED batch rows
+([B, D]), never w.r.t. the table. This op turns those row gradients into
+the dense-Adam update of the whole table::
 
-    for each row-block of the table (grid, double-buffered):
-        d      = scatter(batch row-grads landing in this block)   # MXU
-        g      = d + 2*l2*W                                       # decay
-        mu'    = b1*mu + (1-b1)*g
-        nu'    = b2*nu + (1-b2)*g^2
-        W'     = W - lr * (mu'/bc1) / (sqrt(nu'/bc2) + eps)       # Adam
-        sumsq += sum(W^2)            # pre-update, for the loss's reg term
+    d      = scatter_add(zeros, ids, g_rows) (+ dense_grad)
+    g      = d + 2*l2*W                                    # full-table L2
+    mu'    = b1*mu + (1-b1)*g
+    nu'    = b2*nu + (1-b2)*g^2
+    W'     = W - lr * (mu'/bc1) / (sqrt(nu'/bc2) + eps)    # Adam
+    sumsq  = sum(W^2)          # pre-update, for the loss's reg term
 
-HBM traffic per table: read W,mu,nu + write W,mu,nu (6 passes) — the
-speed-of-light floor for Adam — versus 8+ passes with a separately
-materialized dense grad. The scatter itself never touches HBM: batch
-row-grads (sorted by row id) live in VMEM and land in the block via chunked
-one-hot matmuls on the MXU, so random-row writes disappear entirely.
+as one scatter-add plus one elementwise pass that XLA fuses, on every
+backend and under ``shard_map``. Semantics match optax.scale_by_adam
+(b1/b2/eps, bias correction by step count) + the trainer's -lr scale + the
+analytic gradient 2*l2*W of the full-table L2 regularizer
+(models/two_tower.py loss_and_metrics).
 
-The scatter matmul runs in two bf16 passes (g split into hi + lo parts,
-one-hot is exact in bf16), giving ~2^-17 relative accuracy vs the exact f32
-scatter-add; ``precision="highest"`` switches to a single HIGHEST-precision
-f32 dot for bit-level comparisons.
-
-Semantics match optax.scale_by_adam (b1/b2/eps, bias correction by step
-count) + the trainer's -lr scale + the analytic gradient 2*l2*W of the
-full-table L2 regularizer (models/two_tower.py loss_and_metrics).
+Moments may be stored bf16 (``fused_adam_bf16m``). The update math stays
+f32 and the stores use STOCHASTIC rounding: round-to-nearest bf16 drops
+EMA increments smaller than half an ulp of the running value (nu's
+(1-b2)=1e-3-relative updates sit below bf16's 2^-9 half-ulp), so a
+nearest-rounded nu freezes and the optimizer mis-scales. Adding uniform
+random low-16 bits before truncating makes the rounded value unbiased, so
+sub-ulp increments land with proportional probability.
 """
 
 from __future__ import annotations
@@ -35,533 +32,77 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-DEFAULT_BLOCK_ROWS = 1024  # best of the measured {256,512,1024,2048} sweep
-DEFAULT_CHUNK = 128
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _sr_store(ref, val, sr: bool):
-    """Store a freshly-computed f32 moment into ``ref`` (f32 or bf16).
-
-    bf16 + ``sr``: STOCHASTIC rounding — add uniform random low-16 bits,
-    truncate. Round-to-nearest bf16 silently drops EMA increments smaller
-    than half an ulp of the running value (nu's (1-b2)=1e-3-relative
-    updates are below bf16's 2^-9 half-ulp, so nearest-rounded bf16 nu
-    FREEZES and the optimizer mis-scales — measured at reference scale:
-    val MSE 0.0348 vs 0.0213, teacher recall 0.17 vs 0.73). SR makes the
-    rounded EMA unbiased, so sub-ulp increments land with proportional
-    probability. Carry into the exponent is correct SR-up; sign-magnitude
+def stochastic_round_bf16(val: jax.Array, bits16: jax.Array) -> jax.Array:
+    """Round f32 ``val`` to bf16 stochastically with uniform uint32
+    ``bits16`` in [0, 2^16): add them below the bf16 mantissa, truncate.
+    A carry into the exponent is a correct round-up; sign-magnitude
     addition rounds magnitudes symmetrically."""
-    if ref.dtype == jnp.bfloat16 and sr:
-        bits = jax.lax.bitcast_convert_type(val, jnp.uint32)
-        rb = jax.lax.bitcast_convert_type(
-            pltpu.prng_random_bits(val.shape), jnp.uint32
-        )
-        bits = (bits + (rb & jnp.uint32(0xFFFF))) & jnp.uint32(0xFFFF0000)
-        val = jax.lax.bitcast_convert_type(bits, jnp.float32)
-    ref[:] = val.astype(ref.dtype)
+    b = jax.lax.bitcast_convert_type(val.astype(jnp.float32), jnp.uint32)
+    b = (b + bits16) & jnp.uint32(0xFFFF0000)
+    return jax.lax.bitcast_convert_type(b, jnp.float32).astype(jnp.bfloat16)
 
 
-def _fused_adam_kernel(
-    # scalar prefetch
-    starts_ref,   # [nb+1] i32: sorted-batch offset where each block begins
-    seed_ref,     # [1] i32: per-step PRNG seed (bf16-moment SR; unused o/w)
-    scal_ref,     # [8] f32: lr, bc1, bc2, eps, l2, b1, b2, (pad)
-    # inputs
-    w_ref,        # [R, D] table block
-    mu_ref,       # [R, D]
-    nu_ref,       # [R, D]
-    ids_ref,      # [1, Bp+C] i32 sorted row ids (padded with -2^20)
-    g_ref,        # [Bp+C, D] f32 row grads in sorted order (zero-padded)
-    *refs,        # [dense_ref [R, D]] if has_dense, then the 4 outputs:
-                  # w_out, mu_out, nu_out (aliased onto w/mu/nu), sumsq [1,1]
-    block_rows: int,
-    chunk: int,
-    d: int,
-    n_rows: int,
-    highest: bool,
-    has_dense: bool,
-    sr: bool,
-):
-    it = iter(refs)
-    dense_ref = next(it) if has_dense else None
-    w_out_ref = next(it)
-    mu_out_ref = next(it)
-    nu_out_ref = next(it)
-    sumsq_ref = next(it)
-    i = pl.program_id(0)
-    base = i * block_rows
-
-    w = w_ref[:]
-
-    # Single (1,1) accumulator revisited by every grid step (sequential grid).
-    @pl.when(i == 0)
-    def _():
-        sumsq_ref[0, 0] = 0.0
-
-    # The table is NOT padded to a block multiple (a pad would concatenate-
-    # copy all of w/mu/nu in HBM every step — measured ~2x the kernel's own
-    # traffic at reference shapes). The trailing ragged block arrives with
-    # unspecified values past row n_rows and its out-of-range writes are
-    # dropped by Mosaic; only the sumsq reduction must mask them here.
-    if n_rows % block_rows:
-        row_valid = (
-            base + jax.lax.broadcasted_iota(jnp.int32, (block_rows, 1), 0)
-        ) < n_rows
-        wv = jnp.where(row_valid, w, 0.0)
-    else:
-        wv = w
-    sumsq_ref[0, 0] += jnp.sum(wv * wv)
-
-    # --- scatter batch row-grads into this block (VMEM + MXU only) ---------
-    # Chunks are aligned to `chunk` boundaries; rows outside this block's id
-    # range fall out of the one-hot automatically, which also handles the
-    # (shared) boundary chunks of adjacent blocks.
-    c0 = starts_ref[i] // chunk
-    c1 = (starts_ref[i + 1] + chunk - 1) // chunk
-
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (block_rows, chunk), 0)
-
-    def chunk_body(c, acc):
-        off = c * chunk
-        ids_c = ids_ref[0, pl.ds(off, chunk)]            # [C]
-        g_c = g_ref[pl.ds(off, chunk), :]                # [C, D]
-        local = ids_c - base                             # [-..] outside block
-        onehot = (local[None, :] == row_iota).astype(
-            jnp.float32 if highest else jnp.bfloat16
-        )                                                # [R, C] exact 0/1
-        if highest:
-            acc = acc + jax.lax.dot_general(
-                onehot, g_c,
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        else:
-            g_hi = g_c.astype(jnp.bfloat16)
-            g_lo = (g_c - g_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-            for part in (g_hi, g_lo):
-                acc = acc + jax.lax.dot_general(
-                    onehot, part,
-                    dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-        return acc
-
-    dscat = jax.lax.fori_loop(
-        c0, c1, chunk_body, jnp.zeros((block_rows, d), jnp.float32)
-    )
-    if has_dense:
-        # Pre-accumulated dense gradient (the routed path's multi-round
-        # overflow, routing.route_grad_rows) — added block-by-block, so
-        # its VMEM footprint is one table block regardless of round count.
-        dscat = dscat + dense_ref[:]
-
-    # --- decay + Adam -------------------------------------------------------
-    lr = scal_ref[0]
-    bc1 = scal_ref[1]
-    bc2 = scal_ref[2]
-    eps = scal_ref[3]
-    l2 = scal_ref[4]
-    b1 = scal_ref[5]
-    b2 = scal_ref[6]
-
-    g = dscat + (2.0 * l2) * w
-    # Moments may be stored bf16 (half the moment HBM traffic — 6 -> 4
-    # f32-equivalent passes per table); the update math is always f32 and
-    # bf16 stores use stochastic rounding (_sr_store).
-    if sr:
-        pltpu.prng_seed(seed_ref[0], i)
-    mu = b1 * mu_ref[:].astype(jnp.float32) + (1.0 - b1) * g
-    nu = b2 * nu_ref[:].astype(jnp.float32) + (1.0 - b2) * (g * g)
-    update = (mu / bc1) / (jnp.sqrt(nu / bc2) + eps)
-    w_out_ref[:] = w - lr * update
-    _sr_store(mu_out_ref, mu, sr)
-    _sr_store(nu_out_ref, nu, sr)
+def _store(val: jax.Array, dtype, bits16: jax.Array | None) -> jax.Array:
+    if dtype == jnp.bfloat16:
+        return stochastic_round_bf16(val, bits16)
+    return val.astype(dtype)
 
 
-def _fused_adam_gather_kernel(
-    # scalar prefetch
-    starts_ref,    # [nb+1] i32 sorted-batch offsets per block (update ids)
-    gstarts_ref,   # [nb+1] i32 sorted-batch offsets per block (NEXT-batch ids)
-    seed_ref,      # [1] i32 per-step PRNG seed (bf16-moment SR)
-    scal_ref,      # [8] f32
-    # inputs
-    w_ref, mu_ref, nu_ref, ids_ref, g_ref,
-    nids_ref,      # [1, Bp2] i32 sorted NEXT-batch ids (padded with -2^20)
-    # outputs
-    w_out_ref, mu_out_ref, nu_out_ref, sumsq_ref,
-    rows_out_ref,  # [Bp2, D] f32: POST-update rows for the next batch,
-                   # in nids-sorted order (revisited block, += accumulated)
-    *,
-    block_rows: int,
-    chunk: int,
-    d: int,
-    n_rows: int,
-    highest: bool,
-    sr: bool,
-):
-    """The fused Adam update (identical math to _fused_adam_kernel) PLUS a
-    software-pipelined gather: while each table block is resident in VMEM
-    for its update, the rows the NEXT training batch will read are selected
-    out of the freshly updated block by one-hot matmuls. The training scan
-    then never gathers from the table in XLA — the table has a single
-    consumer (this kernel), so XLA's copy-insertion stops paying the
-    must-alias with a full-table copy per step (measured ~0.23 ms/step at
-    reference shapes, NOTES_PERF.md)."""
-    i = pl.program_id(0)
-    base = i * block_rows
-
-    w = w_ref[:]
-
-    @pl.when(i == 0)
-    def _():
-        sumsq_ref[0, 0] = 0.0
-        rows_out_ref[...] = jnp.zeros(rows_out_ref.shape, jnp.float32)
-
-    if n_rows % block_rows:
-        row_valid = (
-            base + jax.lax.broadcasted_iota(jnp.int32, (block_rows, 1), 0)
-        ) < n_rows
-        wv = jnp.where(row_valid, w, 0.0)
-    else:
-        wv = w
-    sumsq_ref[0, 0] += jnp.sum(wv * wv)
-
-    c0 = starts_ref[i] // chunk
-    c1 = (starts_ref[i + 1] + chunk - 1) // chunk
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (block_rows, chunk), 0)
-
-    def chunk_body(c, acc):
-        off = c * chunk
-        ids_c = ids_ref[0, pl.ds(off, chunk)]
-        g_c = g_ref[pl.ds(off, chunk), :]
-        local = ids_c - base
-        onehot = (local[None, :] == row_iota).astype(
-            jnp.float32 if highest else jnp.bfloat16
-        )
-        if highest:
-            acc = acc + jax.lax.dot_general(
-                onehot, g_c,
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        else:
-            g_hi = g_c.astype(jnp.bfloat16)
-            g_lo = (g_c - g_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-            for part in (g_hi, g_lo):
-                acc = acc + jax.lax.dot_general(
-                    onehot, part,
-                    dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-        return acc
-
-    dscat = jax.lax.fori_loop(
-        c0, c1, chunk_body, jnp.zeros((block_rows, d), jnp.float32)
-    )
-
-    lr = scal_ref[0]
-    bc1 = scal_ref[1]
-    bc2 = scal_ref[2]
-    eps = scal_ref[3]
-    l2 = scal_ref[4]
-    b1 = scal_ref[5]
-    b2 = scal_ref[6]
-
-    g = dscat + (2.0 * l2) * w
-    if sr:
-        pltpu.prng_seed(seed_ref[0], i)
-    mu = b1 * mu_ref[:].astype(jnp.float32) + (1.0 - b1) * g
-    nu = b2 * nu_ref[:].astype(jnp.float32) + (1.0 - b2) * (g * g)
-    update = (mu / bc1) / (jnp.sqrt(nu / bc2) + eps)
-    w_new = w - lr * update
-    w_out_ref[:] = w_new
-    _sr_store(mu_out_ref, mu, sr)
-    _sr_store(nu_out_ref, nu, sr)
-
-    # --- next-batch gather out of the freshly updated block ----------------
-    # Same hi/lo bf16 one-hot trick as the scatter, transposed: each next-id
-    # selects exactly one row of w_new (~2^-17 relative, consistent with the
-    # scatter path). Chunks straddling a block boundary are += accumulated —
-    # each next-row belongs to exactly one block, the other contributes 0.
-    # Unlike the update path (whose garbage writes are simply dropped), the
-    # gather CONTRACTS over the row axis, so the ragged block's unspecified
-    # rows would poison every output through 0 * NaN — mask them first.
-    if n_rows % block_rows:
-        w_g = jnp.where(row_valid, w_new, 0.0)
-    else:
-        w_g = w_new
-    if highest:
-        w_parts = (w_g,)
-    else:
-        w_hi = w_g.astype(jnp.bfloat16)
-        w_lo = (w_g - w_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        w_parts = (w_hi, w_lo)
-
-    g0 = gstarts_ref[i] // chunk
-    g1 = (gstarts_ref[i + 1] + chunk - 1) // chunk
-
-    def gather_body(c, carry):
-        off = c * chunk
-        nids_c = nids_ref[0, pl.ds(off, chunk)]
-        local = nids_c - base
-        onehot = (local[None, :] == row_iota).astype(
-            jnp.float32 if highest else jnp.bfloat16
-        )                                                # [R, C]
-        acc = jnp.zeros((chunk, d), jnp.float32)
-        for part in w_parts:
-            acc = acc + jax.lax.dot_general(
-                onehot, part,
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=(jax.lax.Precision.HIGHEST if highest else None),
-            )                                            # [C, D]
-        rows_out_ref[pl.ds(off, chunk), :] += acc
-        return carry
-
-    jax.lax.fori_loop(g0, g1, gather_body, 0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "block_rows", "chunk", "precision", "alias_tables", "interpret", "vma"
-    ),
-)
+# b1/b2/eps are static so that 1-b1 and 1-b2 are formed in Python double
+# precision, as optax does: 1 - f32(0.999) is 1.3e-5 off 0.001.
+@functools.partial(jax.jit, static_argnames=("b1", "b2", "eps"))
 def sparse_adam_update(
     w: jax.Array,           # [N, D] f32 table
-    mu: jax.Array,          # [N, D] f32 Adam first moment
-    nu: jax.Array,          # [N, D] f32 Adam second moment
-    ids: jax.Array,         # [B] i32 row id per batch example (unsorted)
+    mu: jax.Array,          # [N, D] f32/bf16 Adam first moment
+    nu: jax.Array,          # [N, D] f32/bf16 Adam second moment
+    ids: jax.Array,         # [B] i32 row id per batch example (any order;
+                            #     ids outside [0, N) are dropped)
     g_rows: jax.Array,      # [B, D] f32 gradient w.r.t. the gathered rows
-    step: jax.Array,        # [] i32/f32 Adam step count AFTER this update (t >= 1)
+    step: jax.Array,        # [] i32 Adam step count AFTER this update (t >= 1)
     lr: jax.Array,          # [] f32
     l2: float | jax.Array = 0.0,
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-7,
-    block_rows: int = DEFAULT_BLOCK_ROWS,
-    chunk: int = DEFAULT_CHUNK,
-    precision: str = "fast",        # "fast" (2x bf16) | "highest" (f32)
-    alias_tables: bool = True,
-    next_ids: jax.Array | None = None,
-    interpret: bool | None = None,
-    vma: tuple | frozenset | None = None,
+    table_id: int | jax.Array = 0,
     dense_grad: jax.Array | None = None,   # [N, D] pre-accumulated grads
-    order: jax.Array | None = None,        # [B] precomputed grouping sort
 ) -> tuple[jax.Array, ...]:
-    """One fused sparse-Adam step. Returns (w', mu', nu', sumsq(w_before)).
+    """One sparse-Adam step. Returns (w', mu', nu', sumsq(w_before)).
 
-    Equivalent to::
-
-        dense = zeros_like(w).at[ids].add(g_rows) + (dense_grad or 0) + 2*l2*w
-        mu' = b1*mu + (1-b1)*dense; nu' = b2*nu + (1-b2)*dense**2
-        w' = w - lr * (mu'/(1-b1**t)) / (sqrt(nu'/(1-b2**t)) + eps)
-
-    but with one HBM pass over (w, mu, nu) and no dense-gradient round-trip.
     ``dense_grad`` (an already-materialized [N, D] gradient, e.g. the
-    routed path's multi-round overflow accumulator) streams block-by-block
-    alongside the tables — bounded VMEM at any scale.
-
-    With ``next_ids`` ([B2] i32), the kernel additionally returns
-    ``w'[next_ids]`` as a 5th output, gathered block-by-block while the
-    updated table is still in VMEM (software pipelining for the training
-    scan: the table then has a single consumer, so no copy-insertion tax —
-    see _fused_adam_gather_kernel).
-
-    ``vma`` (mesh axis names) is required when calling inside jax.shard_map
-    with check_vma on: it marks the outputs device-varying over those axes
-    (the sharded trainer passes its full mesh axes). In INTERPRET mode the
-    shard_map combination runs the documented XLA-equivalent math instead
-    (Pallas's HLO interpreter can't discharge refs under varying manual
-    axes); the kernel itself is exercised on TPU and by the single-chip
-    interpret tests.
+    routed path's multi-round overflow accumulator) is added to the
+    scattered rows. ``table_id`` salts the stochastic-rounding bits of
+    bf16 moments, which are drawn from ``jax.random`` keyed by
+    (table_id, step): deterministic per step, distinct per table.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n, d = w.shape
-    b = ids.shape[0]
-
-    if interpret and vma is not None:
-        if next_ids is not None:
-            raise NotImplementedError("next_ids + vma interpret fallback")
-        dense = (
-            jnp.zeros_like(w).at[ids].add(g_rows, mode="drop")
-            + 2.0 * jnp.asarray(l2, jnp.float32) * w
-        )
-        if dense_grad is not None:
-            dense = dense + dense_grad
-        t = step.astype(jnp.float32)
-        bc1 = 1.0 - jnp.float32(b1) ** t
-        bc2 = 1.0 - jnp.float32(b2) ** t
-        mu2 = (b1 * mu.astype(jnp.float32) + (1.0 - b1) * dense)
-        nu2 = (b2 * nu.astype(jnp.float32) + (1.0 - b2) * jnp.square(dense))
-        w2 = w - lr * (mu2 / bc1) / (jnp.sqrt(nu2 / bc2) + jnp.float32(eps))
-        return (w2, mu2.astype(mu.dtype), nu2.astype(nu.dtype),
-                jnp.sum(jnp.square(w)))
-
-    def _sds(shape, dtype=jnp.float32):
-        if vma is None:
-            return jax.ShapeDtypeStruct(shape, dtype)
-        return jax.ShapeDtypeStruct(shape, dtype, vma=frozenset(vma))
-
-    # No table padding: a pad would jnp.concatenate-copy w/mu/nu (6 extra
-    # HBM passes at reference shapes). The ragged trailing block is handled
-    # in-kernel (sumsq mask) and by Mosaic's dropped out-of-range writes.
-    n_pad = _round_up(n, block_rows)
-    nb = n_pad // block_rows
-
-    # Sort the batch by row id so each block owns a contiguous segment.
-    # Grouping only — scatter-add is order-agnostic within equal ids, so
-    # the cheaper unstable sort is exact (measured 0.79 vs 0.93 ms at 10k).
-    # A caller whose ids are a pure function of staged data (the routed
-    # epoch's receipts — routing.receipt_sort_order) passes ``order``
-    # precomputed and skips the in-step argsort entirely.
-    if order is None:
-        order = jnp.argsort(ids, stable=False)
-    ids_s = ids[order].astype(jnp.int32)
-    g_s = g_rows[order]
-    b_pad = _round_up(b, chunk) + chunk
-    ids_s = jnp.pad(ids_s, (0, b_pad - b), constant_values=-(2 ** 20))
-    g_s = jnp.pad(g_s, ((0, b_pad - b), (0, 0)))
-
-    # Per-block segment starts over the sorted ids (scalar-prefetched).
-    # The last bound is clamped to n (not n_pad): drop-marker ids == n from
-    # routed receipts (routing.route_grad_rows) sort past every real id and
-    # must not inflate the final block's chunk range — their scatter is a
-    # provable no-op, but walking thousands of marker slots isn't free.
-    bounds = jnp.minimum(
-        jnp.arange(0, n_pad + 1, block_rows, dtype=jnp.int32), n
+    dense = jnp.zeros(w.shape, jnp.float32).at[ids].add(
+        g_rows.astype(jnp.float32), mode="drop"
     )
-    starts = jnp.searchsorted(ids_s[:b], bounds, side="left").astype(jnp.int32)
-
-    t = step.astype(jnp.float32)
-    # bf16-moment stores use stochastic rounding on TPU (deterministic per
-    # step: the PRNG seeds from the step count + block index).
-    sr = (mu.dtype == jnp.bfloat16 or nu.dtype == jnp.bfloat16) and not interpret
-    seed = jnp.reshape(step.astype(jnp.int32), (1,))
-    scal = jnp.stack([
-        jnp.asarray(lr, jnp.float32),
-        1.0 - jnp.float32(b1) ** t,
-        1.0 - jnp.float32(b2) ** t,
-        jnp.float32(eps),
-        jnp.asarray(l2, jnp.float32),
-        jnp.float32(b1),
-        jnp.float32(b2),
-        jnp.float32(0.0),
-    ])
-
-    table_spec = pl.BlockSpec(
-        (block_rows, d), lambda i, *_: (i, 0), memory_space=pltpu.VMEM
-    )
-    if next_ids is None:
-        kernel = functools.partial(
-            _fused_adam_kernel,
-            block_rows=block_rows, chunk=chunk, d=d, n_rows=n,
-            highest=(precision == "highest"),
-            has_dense=dense_grad is not None, sr=sr,
-        )
-        in_specs = [
-            table_spec, table_spec, table_spec,
-            pl.BlockSpec((1, b_pad), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_pad, d), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ]
-        extra = []
-        if dense_grad is not None:
-            in_specs.append(table_spec)
-            extra.append(dense_grad)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(nb,),
-            in_specs=in_specs,
-            out_specs=(
-                table_spec, table_spec, table_spec,
-                pl.BlockSpec((1, 1), lambda i, *_: (0, 0), memory_space=pltpu.SMEM),
-            ),
-        )
-        w2, mu2, nu2, sumsq = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=(
-                _sds((n, d)), _sds((n, d), mu.dtype), _sds((n, d), nu.dtype),
-                _sds((1, 1)),
-            ),
-            # alias_tables=True updates w/mu/nu in place (tensor-input k
-            # after the 2 scalar-prefetch args aliases output k). Inside a
-            # lax.scan, XLA's copy-insertion still pays the w must-alias
-            # with a full-table copy (w is also read by the forward
-            # gather), but measured both ways at reference shapes the
-            # aliased form is faster in-scan (0.906 vs 1.167 ms/step) —
-            # without aliasing the scan carry pays MORE copies on the
-            # output side. The next_ids variant below removes the w copy
-            # altogether by making this kernel the table's only consumer.
-            input_output_aliases=(
-                {3: 0, 4: 1, 5: 2} if alias_tables else {}
-            ),
-            interpret=interpret,
-        )(starts, seed, scal, w, mu, nu, ids_s.reshape(1, -1), g_s, *extra)
-
-        return w2, mu2, nu2, sumsq[0, 0]
-
     if dense_grad is not None:
-        raise NotImplementedError("dense_grad + next_ids (unused combination)")
-    # Pipelined variant: also gather w'[next_ids] block-by-block.
-    b2 = next_ids.shape[0]
-    norder = jnp.argsort(next_ids, stable=False)  # dup ids -> same row
-    nids_s = next_ids[norder].astype(jnp.int32)
-    b2_pad = _round_up(b2, chunk) + chunk
-    nids_p = jnp.pad(nids_s, (0, b2_pad - b2), constant_values=-(2 ** 20))
-    gstarts = jnp.searchsorted(nids_s, bounds, side="left").astype(jnp.int32)
+        dense = dense + dense_grad
+    g = dense + 2.0 * jnp.asarray(l2, jnp.float32) * w
+    t = step.astype(jnp.float32)
+    bc1 = 1.0 - jnp.float32(b1) ** t
+    bc2 = 1.0 - jnp.float32(b2) ** t
+    mu2 = b1 * mu.astype(jnp.float32) + (1.0 - b1) * g
+    nu2 = b2 * nu.astype(jnp.float32) + (1.0 - b2) * jnp.square(g)
+    w2 = w - lr * (mu2 / bc1) / (jnp.sqrt(nu2 / bc2) + jnp.float32(eps))
 
-    kernel = functools.partial(
-        _fused_adam_gather_kernel,
-        block_rows=block_rows, chunk=chunk, d=d, n_rows=n,
-        highest=(precision == "highest"), sr=sr,
+    bits_mu = bits_nu = None
+    if jnp.bfloat16 in (mu.dtype, nu.dtype):
+        # One 32-bit draw per element feeds both moments: low half to mu,
+        # high half to nu.
+        key = jax.random.fold_in(
+            jax.random.PRNGKey(table_id), step.astype(jnp.uint32)
+        )
+        bits = jax.random.bits(key, w.shape, jnp.uint32)
+        bits_mu = bits & jnp.uint32(0xFFFF)
+        bits_nu = bits >> jnp.uint32(16)
+    return (
+        w2,
+        _store(mu2, mu.dtype, bits_mu),
+        _store(nu2, nu.dtype, bits_nu),
+        jnp.sum(jnp.square(w)),
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(nb,),
-        in_specs=[
-            table_spec, table_spec, table_spec,
-            pl.BlockSpec((1, b_pad), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_pad, d), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, b2_pad), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            table_spec, table_spec, table_spec,
-            pl.BlockSpec((1, 1), lambda i, *_: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((b2_pad, d), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ),
-    )
-    w2, mu2, nu2, sumsq, rows_s = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            _sds((n, d)), _sds((n, d), mu.dtype), _sds((n, d), nu.dtype),
-            _sds((1, 1)), _sds((b2_pad, d)),
-        ),
-        # With the gather fused in, the tables' ONLY consumer is this call:
-        # the must-alias is then free (no other live use to preserve).
-        input_output_aliases=(
-            {4: 0, 5: 1, 6: 2} if alias_tables else {}
-        ),
-        interpret=interpret,
-    )(starts, gstarts, seed, scal, w, mu, nu, ids_s.reshape(1, -1), g_s,
-      nids_p.reshape(1, -1))
-
-    # Un-sort the gathered rows back to next_ids' original order.
-    # Invert the permutation with a scatter (a full sort costs ~0.8 ms
-    # at 10k on TPU; the scatter is ~4x cheaper).
-    inv = jnp.zeros((b2,), jnp.int32).at[norder].set(
-        jnp.arange(b2, dtype=jnp.int32)
-    )
-    rows = rows_s[:b2][inv]
-    return w2, mu2, nu2, sumsq[0, 0], rows

@@ -1,17 +1,17 @@
 """IVF (inverted-file) clustered retrieval for beyond-catalog-scale tables.
 
-The exact Pallas scan (ops/topk.py) streams the whole table through VMEM
-once per query batch — optimal until the table outgrows the latency
-budget: 350K rows is a 0.17 ms f32 DMA floor, but 4M rows is ~2.0 ms and
-40M would be ~20. Past ~1M rows, serving wants a SUBLINEAR scan. IVF:
+The exact scan (ops/topk.py) reads the whole table once per query batch,
+so its cost grows linearly with the table: 350K x 128 f32 rows are 179 MB,
+4M rows 2 GB, 40M rows 20 GB. Past ~1M rows, serving wants a SUBLINEAR
+scan. IVF:
 spherical-k-means cluster the L2-normalized rows at build time, store each
 cluster's member row ids in a fixed-capacity bucket grid; a query scores
-the C centroids (one small MXU matmul), probes its top-p buckets, gathers
+the C centroids (one small matmul), probes its top-p buckets, gathers
 just those rows and rescores them EXACTLY. HBM traffic per query drops
 from N*D to C*D + (p*cap + spill)*D — 20-60x less at 4M rows — at a
 measured recall cost (bench records recall@10 next to every latency key).
 
-TPU-native choices:
+Design choices:
   * static shapes end to end: buckets are a dense [C, cap] int32 grid
     padded with -1; rows of clusters that overflow cap go to one shared
     SPILL list that is appended to every query's candidate pool (scanned
@@ -28,7 +28,7 @@ TPU-native choices:
 This replaces nothing in the reference — its catalog tops out at ~350K
 rows (README.md:45) where the exact scan wins and stays the default; IVF
 is the scale-out serving path for catalogs beyond ~1M rows. The hot loop
-it generalizes is the same one the exact kernel replaces:
+it generalizes is the same one the exact scan replaces:
 /root/reference/similar_users/similar_users.py:293-295 (full-table
 np.dot + argsort per query).
 """
@@ -54,8 +54,7 @@ class IVFIndex(NamedTuple):
     table     : [N, D]  the original rows, used for exact rescore
     q8/scale  : optional int8 rows + per-row de-scale (storage="int8"):
                 the candidate gather — the batched query path's dominant
-                HBM cost, random row gathers run ~6x slower per byte than
-                streaming on this chip — reads 4x fewer bytes; a slim
+                memory cost — reads 4x fewer bytes; a slim
                 top-max(4k, k+8) pool per query is then rescored from the
                 exact f32 rows (the ops/quantized.py recipe).
     """
@@ -80,11 +79,10 @@ class IVFIndex(NamedTuple):
 def _kmeans(table, init_ids, n_clusters: int, iters: int, chunk: int):
     """Spherical Lloyd's on device. Returns (centroids [C,D], assign [N]).
 
-    Everything is MXU matmuls: assignment is a blocked [chunk, D] @ [D, C]
+    Everything is matmuls: assignment is a blocked [chunk, D] @ [D, C]
     argmax (the [N, C] score surface never materializes), and the centroid
     update accumulates per-chunk one-hot.T @ rows partial sums — a second
-    matmul — instead of a scatter-add segment_sum (TPU scatters serialize;
-    the one-hot matmul form measured ~40x faster at 4M rows).
+    matmul — instead of a scatter-add segment_sum.
     """
     n, d = table.shape
     # Centroids live in f32 whatever the table dtype (IVFIndex contract;
@@ -320,7 +318,7 @@ def ivf_topk(
         if mask is not None:
             alive &= jnp.asarray(mask, bool)[safe]
         if index.q8 is not None:
-            # int8 stage 1: gather 4x fewer bytes, score with the int8 MXU
+            # int8 stage 1: gather 4x fewer bytes, score with the int8 matmul
             # path (per-row symmetric de-scale, ops/quantized.py noise
             # model), keep a slim top-m pool, rescore it from exact rows.
             q_abs = jnp.maximum(jnp.max(jnp.abs(q), axis=1), 1e-12)

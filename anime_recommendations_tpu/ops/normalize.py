@@ -1,8 +1,7 @@
-"""Pallas kernel: L2 row-normalization of an embedding table.
+"""L2 row-normalization of an embedding table.
 
-TPU-native replacement for the reference's numpy normalization
-(get_weights, similar_anime.py:136-171): one pass over HBM, rsqrt on the
-VPU, no intermediate norm vector materialized.
+Replacement for the reference's numpy normalization (get_weights,
+similar_anime.py:136-171): one elementwise pass that XLA fuses.
 """
 
 from __future__ import annotations
@@ -11,49 +10,11 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_BLOCK_ROWS = 1024
 
 
-def _normalize_kernel(x_ref, o_ref, *, eps: float):
-    x = x_ref[:]
-    sq = jnp.sum(jnp.square(x.astype(jnp.float32)), axis=-1, keepdims=True)
-    o_ref[:] = (x.astype(jnp.float32) * jax.lax.rsqrt(jnp.maximum(sq, eps))).astype(
-        o_ref.dtype
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("eps", "block_rows", "interpret"))
-def l2_normalize_rows(
-    table: jax.Array,
-    eps: float = 1e-24,
-    block_rows: int = _BLOCK_ROWS,
-    interpret: bool | None = None,
-) -> jax.Array:
-    """Rowwise x / ||x||_2 over an [N, D] table (Pallas, blockwise)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n, d = table.shape
-    block_rows = min(block_rows, _round_up(n, 8))
-    n_pad = _round_up(n, block_rows)
-    if n_pad != n:
-        table = jnp.pad(table, ((0, n_pad - n), (0, 0)))
-    out = pl.pallas_call(
-        functools.partial(_normalize_kernel, eps=eps),
-        grid=(n_pad // block_rows,),
-        in_specs=[
-            pl.BlockSpec((block_rows, d), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec(
-            (block_rows, d), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((n_pad, d), table.dtype),
-        interpret=interpret,
-    )(table)
-    return out[:n]
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+@functools.partial(jax.jit, static_argnames=("eps",))
+def l2_normalize_rows(table: jax.Array, eps: float = 1e-24) -> jax.Array:
+    """Rowwise x / ||x||_2 over an [N, D] table, computed in f32."""
+    x = table.astype(jnp.float32)
+    sq = jnp.sum(jnp.square(x), axis=-1, keepdims=True)
+    return (x * jax.lax.rsqrt(jnp.maximum(sq, eps))).astype(table.dtype)

@@ -1,25 +1,18 @@
 """Two-stage int8 retrieval: quantized scan + exact f32 rescore.
 
-The retrieval scan (ops/topk.py) is DMA-bound — it reads the whole
-embedding table once per query batch. Storing the table in int8 cuts that
-read 4x vs f32 (2x vs bf16). int8 dot products carry ~1/127-per-element
-noise, so stage 1 over-selects a candidate pool of ``m >> k`` rows with the
-quantized kernel and stage 2 rescores just those m rows in exact f32 and
-takes the true top-k. With m >= 4k the pool virtually always contains the
-exact top-k (tests assert exact oracle overlap on random tables; bench
-tracks it on every run).
+The retrieval scan (ops/topk.py) reads the whole embedding table once per
+query batch. Storing the table in int8 cuts that read 4x vs f32 (2x vs
+bf16). int8 dot products carry ~1/127-per-element noise, so stage 1
+over-selects a candidate pool of ``m = max(4k, k+8)`` rows from the int8
+scores and stage 2 rescores just those m rows in exact f32 and takes the
+true top-k. With m >= 4k the pool virtually always contains the exact
+top-k (tests assert exact oracle overlap on random tables).
 
 Quantization: symmetric per-row int8 over L2-NORMALIZED rows —
 ``q_r = round(127 * w_r / max|w_r|)``, ``scale_r = max|w_r| / 127``.
-cos(q, r) ≈ (iq · ir) * scale_q * scale_r, applied as a row-scale inside
-the kernel before masking/extraction.
-
-Stage 1 IS the shared packed-candidate kernel of ops/topk.py
-(_packed_candidates with quantized=True: int8 MXU matmul with
-preferred_element_type=int32 + fused per-row de-scale); masks,
-self-exclusion and the optional sigmoid head behave identically. The
-grouped packed-max extraction scheme originated here and was generalized
-to float tables in round 3; round 4 unified both paths on one kernel.
+cos(q, r) ≈ (iq · ir) * scale_q * scale_r. Stage 1 is one int8 x int8 ->
+int32 ``dot_general``; masks, self-exclusion and the optional sigmoid head
+behave as in ops/topk.masked_topk.
 """
 
 from __future__ import annotations
@@ -30,14 +23,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from anime_recommendations_tpu.ops.topk import (
-    GROUP,
-    _packed_candidates,
-    _rescore_pool,
-    _round_up,
-)
-
-DEFAULT_BLOCK_ROWS = 8192   # int8 rows are 4x smaller (1 MB/block); round-5 sweep
+from anime_recommendations_tpu.ops.topk import _mask_scores, _rescore_pool, _top_k
 
 
 class QuantizedTable(NamedTuple):
@@ -56,96 +42,47 @@ def quantize_rows(table: jax.Array) -> QuantizedTable:
     return QuantizedTable(q=q, scale=scale, f32=table)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "k", "m", "block_rows", "interpret", "use_head", "lane_pad", "top_r",
-    ),
-)
+@functools.partial(jax.jit, static_argnames=("k", "use_head"))
 def quantized_topk(
     qt: QuantizedTable,
     queries: jax.Array,        # [Qn, D] float
     k: int,
-    m: int | None = None,      # candidate pool size (default 4k, >= k)
     mask: jax.Array | None = None,
     exclude: jax.Array | None = None,
     head: jax.Array | None = None,
-    block_rows: int = DEFAULT_BLOCK_ROWS,
-    interpret: bool | None = None,
     use_head: bool = False,
-    lane_pad: int = 8,
-    top_r: int | None = None,
 ) -> tuple[jax.Array, jax.Array]:
     """Exact-rescored top-k via an int8 scan. Same contract as masked_topk.
 
-    Stage 1 scans the int8 table for m candidates; stage 2 gathers the m
-    f32 rows, rescoring them exactly, and returns the true top-k of the pool.
+    Stage 1 scores the int8 table and keeps the best m candidates; stage 2
+    gathers the m exact rows, rescores them in f32 and returns the true
+    top-k of the pool.
     """
     if queries.ndim == 1:
         queries = queries[None, :]
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    qn = queries.shape[0]
-    n, d = qt.q.shape
-    # Tiny tables: the dense path is faster than any staging and dodges
-    # single-block Mosaic compiles (see ops/topk.py small-table note).
-    if n <= 4096 and not interpret:
-        from anime_recommendations_tpu.ops.topk import masked_topk
-
-        return masked_topk(
-            qt.f32, queries, k, mask=mask, exclude=exclude, head=head,
-            use_head=use_head, lane_pad=lane_pad,
-        )
-    if m is None:
-        m = min(max(4 * k, k + 8), n)
-    m = max(m, k)
-
-    block_rows = min(block_rows, _round_up(n, 32))
-    if block_rows < GROUP:  # pow2 so the packed key's lane bits are a mask
-        block_rows = 1 << (block_rows - 1).bit_length()
-    # int8 arrays tile at (32, 128): the query block's sublane dim must be
-    # a multiple of 32.
-    qp = _round_up(max(qn, 1), max(lane_pad, 32))
-    while block_rows > 512 and block_rows * d > 2 * 1024 * 1024:
-        block_rows //= 2
-    while block_rows > 512 and qp * block_rows * 4 > 8 * 1024 * 1024:
-        block_rows //= 2
-    # The grouped extraction scans n_groups * GROUP rows per block; a block
-    # not a multiple of GROUP would leave a tail of rows that are matmul'd
-    # but never extraction candidates (silently dropping true top-k rows in
-    # the tail). Round DOWN to a GROUP multiple (never up: the VMEM clamp
-    # above must hold); blocks <= GROUP are one full group by construction.
-    if block_rows > GROUP:
-        block_rows -= block_rows % GROUP
+    n = qt.q.shape[0]
+    m = min(max(4 * k, k + 8), n)
 
     # Quantize the queries with their own per-row scales.
     q_abs = jnp.maximum(jnp.max(jnp.abs(queries), axis=1), 1e-12)
     q_scale = (q_abs / 127.0).astype(jnp.float32)
     q_int = jnp.round(queries / q_scale[:, None]).astype(jnp.int8)
-    q_p = jnp.pad(q_int, ((0, qp - qn), (0, 0)))
-    qs_p = jnp.pad(q_scale.reshape(1, qn), ((0, 0), (0, qp - qn)))
-
-    if exclude is None:
-        excl_row = None
-    else:
-        excl_row = jnp.pad(
-            exclude.astype(jnp.int32).reshape(1, qn), ((0, 0), (0, qp - qn)),
-            constant_values=-1,
-        )
-    head_arr = None if head is None else head.astype(jnp.float32).reshape(1, 2)
-
-    # The table/scales are NOT padded: the Pallas grid covers full blocks
-    # only and the < block_rows ragged tail is scored densely in XLA from
-    # the exact f32 rows (padding would jnp.pad-COPY the table per call).
-    # The int8 (32, 128) tile forces qp to a 32-multiple for the MATMUL
-    # operand only; the extraction runs at the float-path width (the
-    # VERDICT r4 int8-q8 gap was mostly this 4x extraction surface).
-    qp_ex = min(qp, _round_up(max(qn, 1), max(lane_pad, 8)))
-    cand, alive = _packed_candidates(
-        qt.q, q_p, m=m, n=n, qn=qn, qp=qp, block_rows=block_rows,
-        mask=mask, exclude_row=excl_row, head_arr=head_arr,
-        use_head=use_head, interpret=interpret,
-        qscale_row=qs_p, wscale=qt.scale, top_r=top_r, qp_ex=qp_ex,
-        queries_f32=queries, tail_table=qt.f32, tail_k=k,
-    )
+    acc = jax.lax.dot_general(
+        q_int, qt.q,
+        dimension_numbers=(((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )                                                    # [Qn, N] exact int32
+    approx = acc.astype(jnp.float32) * q_scale[:, None] * qt.scale[None, :]
+    if use_head:
+        # sigmoid(alpha*cos + beta) ranks like alpha*cos; alpha may be
+        # negative, which flips the order.
+        approx = head[0] * approx
+    _, cand = _top_k(_mask_scores(approx, mask, exclude), m)
+    # Dead candidates (masked/excluded) are re-marked here so the rescore
+    # cannot promote them above live rows.
+    alive = jnp.ones(cand.shape, bool)
+    if mask is not None:
+        alive &= mask.astype(jnp.float32)[cand] > 0.0
+    if exclude is not None:
+        alive &= cand != exclude.astype(jnp.int32)[:, None]
     return _rescore_pool(qt.f32, queries, cand, alive, k, head, use_head)

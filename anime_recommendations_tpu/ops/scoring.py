@@ -10,7 +10,7 @@ another affine), the entire head folds into sigmoid(alpha*cos + beta) with
     alpha = gamma * w / sqrt(moving_var + eps)
     beta  = gamma * (b - moving_mean) / sqrt(moving_var + eps) + bn_beta
 
-which rides inside the fused top-k kernel (ops/topk.py, use_head=True).
+which is applied inside the top-k program (ops/topk.py, use_head=True).
 """
 
 from __future__ import annotations
@@ -47,13 +47,13 @@ def score_all_items(
     u = params.user_emb[user_index]
     u = u / jnp.linalg.norm(u)
     a = params.anime_emb / jnp.linalg.norm(params.anime_emb, axis=1, keepdims=True)
-    cos = a @ u
+    cos = jnp.dot(a, u, precision=jax.lax.Precision.HIGHEST)
     alpha, beta = head_affine(params, bn_state)
     return jax.nn.sigmoid(alpha * cos + beta)
 
 
 def score_topk(
-    anime_table_normalized,              # [N, D] rows / Quantized / Shuffled
+    anime_table_normalized,              # [N, D] rows / QuantizedTable / IVFIndex
     user_rows_normalized: jax.Array,     # [Qn, D] L2-normalized user rows
     head: jax.Array,                     # [2] (alpha, beta) from head_affine
     k: int,

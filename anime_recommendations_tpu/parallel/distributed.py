@@ -1,10 +1,16 @@
-"""Multi-host runtime initialization.
+"""Multi-process runtime initialization.
 
-TPU-native replacement for the reference's TPUClusterResolver.connect()
-(neural_network.py:142-144). On a pod slice, every host process calls
-initialize() before any jax op; afterwards jax.devices() spans the whole
-slice and the ('data','model') mesh from parallel.mesh lays collectives
-over ICI. Single-host (or already-initialized) environments no-op.
+Replacement for the reference's cluster-resolver connect
+(neural_network.py:142-144). With several processes, every process calls
+initialize() before any jax op; afterwards jax.devices() spans all of
+them and the ('data','model') mesh from parallel.mesh lays collectives
+across processes. Single-process (or already-initialized) runs no-op.
+
+On GPUs each process owns one card: pass
+``jax.distributed.initialize(..., local_device_ids=[i])`` for process i
+of a host. One process can also drive all the cards of a host by itself,
+which is what the benchmark and chip_smoke.py do. The 2-process run in
+tests/test_distributed.py is a rehearsal on virtual CPU devices.
 
 Data loading stays host-local: each host feeds only the batch rows for its
 addressable devices (host_batch_slice), so no global batch ever
@@ -29,9 +35,9 @@ def initialize(
     """Initialize jax.distributed when running multi-host; returns True when
     a multi-process runtime is active after the call.
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (metadata on Cloud TPU VMs) or JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars.
+    With no arguments, reads the JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars; nothing detects a
+    cluster by itself.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -128,9 +134,9 @@ def pad_batch_for_hosts(
 # process calls initialize(), builds the same global mesh, feeds ONLY its
 # host_batch_slice of the global batch, and executes the SPMD step whose
 # collectives now cross process boundaries. This is the executable template
-# for a pod-slice launch (one process per host) and the target of the
-# 2-process CPU test (tests/test_distributed.py) — the engine equivalent of
-# the reference's TPUClusterResolver.connect() + strategy.scope() training
+# for a multi-process launch and the target of the 2-process CPU test
+# (tests/test_distributed.py) — the engine equivalent of the reference's
+# cluster connect + strategy.scope() training
 # (neural_network.py:142-144,174-178).
 
 
@@ -234,8 +240,8 @@ def worker_fit(
     """A FULL ``ShardedTrainer.fit`` across all processes: device epoch
     scan (train + on-mesh holdout eval in one program per epoch, with
     precomputed exchange plans for the routed optimizers), best-checkpoint
-    Orbax saves, and optional same-mesh resume — the engine equivalent of
-    the reference's complete ``model.fit`` under TPUStrategy
+    saves, and optional same-mesh resume — the engine equivalent of the
+    reference's complete distributed ``model.fit``
     (neural_network.py:174-217), not just isolated steps.
 
     Every process builds the identical synthetic dataset (same seed) and

@@ -1,15 +1,16 @@
 """Device mesh construction.
 
-TPU-native replacement for the reference's TPUStrategy boilerplate
+Replacement for the reference's distribution-strategy boilerplate
 (neural_network.py:142-144): a two-axis logical mesh
 
     ('data', 'model')
 
 where 'data' replicates the model and splits the batch (the reference's
 only strategy) and 'model' row-shards the user embedding table (the
-scaling axis this workload actually has — SURVEY.md §5.7). On real
-multi-host TPU the caller runs jax.distributed.initialize() first;
-device order from mesh_utils keeps ICI-adjacent devices on the same axis.
+scaling axis this workload actually has — SURVEY.md §5.7). With several
+processes the caller runs jax.distributed.initialize() first. The cards
+of one host reach each other all to all at the same rate (NVLink), so
+the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """All-to-all embedding-row routing for sharded tables.
 
-TPU-native replacement for the reference's implicit single-replica
-embedding lookup (neural_network.py:142-144 simply replicates the whole
-Keras model under TPUStrategy): the big user table is row-sharded across
+Replacement for the reference's implicit single-replica embedding lookup
+(neural_network.py:142-144 simply replicates the whole Keras model on
+every replica): the big user table is row-sharded across
 ALL mesh devices and batch lookups are routed to owning shards with
 all-to-all collectives, so each row's data crosses the interconnect once —
 instead of the legacy psum routing (parallel/sharded_train._sharded_lookup)
@@ -37,9 +37,7 @@ sharded over the WHOLE mesh there is exactly one physical copy of each
 row, so no further cross-device grad reduction is needed.
 
 Replaces (by design, not translation): reference embedding gather
-neural_network.py:74-85 + TPUStrategy all-reduce; north star of
-BASELINE.json ("row-sharded across a multi-host TPU pod slice with
-all-to-all lookup exchange").
+neural_network.py:74-85 + the replicas' gradient all-reduce.
 """
 
 from __future__ import annotations
@@ -261,7 +259,7 @@ def _planned_gather(table_local, ids, plan, axis, m, cap, r_local):
     ``table_local[ids]`` (with the same OOB -> zeros contract). This is
     the production single-shard case — it removes the response scatter and
     the dup-fill gather entirely (~3 of the 4 [B, D] row ops per table per
-    step that made up the m=1 routed residual, NOTES_PERF round 4)."""
+    step)."""
     b = ids.shape[0]
     d = table_local.shape[1]
     if m == 1:
@@ -466,69 +464,6 @@ def route_grads_lazy_adam(
     return w, mu, nu
 
 
-def receipt_slots(b: int, n_shards: int, capacity: int,
-                  max_rounds: int | None = None,
-                  staged_rounds: int = 4) -> int:
-    """Staged receipt-buffer size T of route_grad_rows for a [b] batch —
-    shared by the order precompute below and any consumer sizing VMEM."""
-    if max_rounds is None:
-        max_rounds = -(-b // capacity)
-    return min(max_rounds, staged_rounds) * n_shards * capacity
-
-
-def receipt_sort_order(
-    ids: jax.Array,
-    *,
-    axis,
-    n_shards: int,
-    capacity: int,
-    r_local: int,
-    max_rounds: int | None = None,
-    staged_rounds: int = 4,
-    plan: _Plan | None = None,
-) -> jax.Array:
-    """The grouping-sort permutation of route_grad_rows' OWNER-SIDE receipt
-    ids, [T] int32 — a pure function of every device's exchange plan, so
-    the staged epoch precomputes it once per fit and the fused Adam kernel
-    skips its per-step receipt argsort (~0.8 ms per table per step at
-    B=10k; NOTES_PERF.md "batch argsort" section).
-
-    Runs the ID-ONLY half of the exchange (same send/recv schedule as
-    route_grad_rows; drop markers land at r_local) and argsorts the staged
-    receipt ids. MUST be called with the same capacity/max_rounds/
-    staged_rounds the step will use.
-    """
-    m, cap = n_shards, capacity
-    b = ids.shape[0]
-    if max_rounds is None:
-        max_rounds = -(-b // cap)
-    staged = min(max_rounds, staged_rounds)
-    if plan is None:
-        plan = _make_plan(ids, m, cap, axis)
-    t_slots = staged * m * cap
-
-    def body(carry):
-        r, oid = carry
-        send_ids, _ = _send_slot_ids(plan, r, cap, m)
-        recv_ids = jax.lax.all_to_all(send_ids, axis, 0, 0)
-        lid = local_of(jnp.maximum(recv_ids, 0), m)
-        ok = (recv_ids >= 0) & (lid < r_local)
-        base = jnp.where(r < staged, r, staged) * jnp.int32(m * cap)
-        pos = base + jnp.arange(m * cap, dtype=jnp.int32)
-        oid = oid.at[pos].set(
-            jnp.where(ok.reshape(-1), lid.reshape(-1), r_local).astype(jnp.int32),
-            mode="drop", unique_indices=True,
-        )
-        return r + 1, oid
-
-    _, oid = jax.lax.while_loop(
-        lambda c: c[0] < jnp.minimum(plan.rounds, max_rounds),
-        body,
-        (jnp.int32(0), _pvary(jnp.full((t_slots,), r_local, jnp.int32), axis)),
-    )
-    return jnp.argsort(oid, stable=False).astype(jnp.int32)
-
-
 def route_grad_rows(
     ids: jax.Array,      # [B] global ids this device looked up
     g_rows: jax.Array,   # [B, D] grads w.r.t. the exchanged rows
@@ -562,11 +497,11 @@ def route_grad_rows(
     plan's rounds fit if that matters to you).
 
     ``staged_rounds`` bounds the receipt buffer: rounds below it stage
-    per-slot receipts (what the fused kernel's VMEM wants — T stays
-    O(staged_rounds * m * capacity) instead of growing ~B * m with shard
-    count); any round at or past it scatter-adds into the returned
-    [r_local, D] dense overflow gradient instead, which the consumer adds
-    per table block (ops/fused_adam.sparse_adam_update ``dense_grad``).
+    per-slot receipts (T stays O(staged_rounds * m * capacity) instead of
+    growing ~B * m with shard count); any round at or past it scatter-adds
+    into the returned [r_local, D] dense overflow gradient instead, which
+    the consumer adds to its scatter (ops/fused_adam.sparse_adam_update
+    ``dense_grad``).
     ``dense_overflow`` is None — statically absent, costing nothing —
     whenever every possible round fits the staged buffer.
     """
@@ -586,7 +521,7 @@ def route_grad_rows(
         # is just (head-rank local ids, per-unique grad sums) — the exact
         # slot layout the general loop produces at m=1 (pos = r*cap + j =
         # head rank), with no send gather, no response scatter and no
-        # all-to-alls. receipt_sort_order's precomputed orders stay valid.
+        # all-to-alls.
         k = jnp.arange(b, dtype=jnp.int32)
         lid = plan.uids.astype(jnp.int32)
         valid = (k < plan.hcnt[0]) & (lid >= 0) & (lid < r_local)

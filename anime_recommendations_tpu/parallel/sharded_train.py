@@ -1,7 +1,7 @@
 """SPMD training step: row-sharded embedding tables over a 2-axis mesh.
 
-TPU-native replacement for the reference's data-parallel-only
-TPUStrategy training (neural_network.py:142-178). Two routing modes
+Replacement for the reference's data-parallel-only distribution-strategy
+training (neural_network.py:142-178). Two routing modes
 (SURVEY.md §2 parallelism table, BASELINE.json north star):
 
 ``routing="alltoall"`` (default, the production path):
@@ -23,7 +23,7 @@ TPUStrategy training (neural_network.py:142-178). Two routing modes
     replicated; every shard gathers against the full local batch and an
     all-reduce over 'model' assembles rows. Simple, and fine at
     model<=2; its dense [B, D] psum and the data-axis reduction of the
-    table-shard gradient do not scale (VERDICT.md round 1, item 1).
+    table-shard gradient do not scale.
 
 Gradient reduction: grads of replicated leaves (head, BN; plus the anime
 table in psum mode) are reduced over the batch axes by the vma-aware
@@ -376,8 +376,8 @@ class ShardedTrainStep:
         ``plans=(plan_u, plan_a)`` reuses PRECOMPUTED exchange plans (the
         staged-epoch path: plans are pure functions of the batch ids, and
         batch COMPOSITION is fixed at stage time, so the per-step batch
-        argsort + segment machinery — the dominant non-bandwidth cost of
-        the routed step, NOTES_PERF.md — is paid once per fit instead of
+        argsort + segment machinery — a non-bandwidth cost of the routed
+        step — is paid once per fit instead of
         once per step)."""
         m = self._n_shards
         cap_u = self._capacity(users.shape[0])
@@ -491,20 +491,24 @@ class ShardedTrainStep:
         return new_state, loss, mse
 
     def _fused_step(self, state: TrainState, users, anime, ratings, weights, lr,
-                    plans=None, orders=None):
+                    plans=None):
         """Owner-side FUSED dense-Adam on the routed path: exact dense-Adam
         semantics (every local row decays + updates moments each step, the
-        loss includes the L2 value) at one Pallas pass per local table
-        shard (ops/fused_adam.sparse_adam_update).
+        loss includes the L2 value), one sparse_adam_update per local table
+        shard (ops/fused_adam.py).
 
         Gradients are taken w.r.t. the exchanged rows; per-unique-row grad
         sums travel back to the owning shard (routing.route_grad_rows) and
-        land in the owner's single fused kernel call as a scatter-add.
+        land in the owner's single update as a scatter-add.
         Because ALL overflow rounds are staged before that one application,
         multi-round overflow under skew is EXACT — no per-round deviation
         (unlike lazy_adam's route_grads_lazy_adam).
         """
         from anime_recommendations_tpu.ops.fused_adam import sparse_adam_update
+        from anime_recommendations_tpu.train.fused import (
+            ANIME_TABLE_ID,
+            USER_TABLE_ID,
+        )
         from anime_recommendations_tpu.train.lazy import B1, B2
         from anime_recommendations_tpu.train.trainer import KERAS_ADAM_EPS
 
@@ -517,11 +521,10 @@ class ShardedTrainStep:
         )
 
         t = opt.count + 1
-        # Receipts are staged for the first staged_rounds overflow rounds
-        # (bounded VMEM in the fused kernel); rarer deeper overflow comes
-        # back as a dense per-shard gradient the kernel streams block-by-
-        # block — exact dense-Adam semantics at ANY skew/shard count
-        # (routing.route_grad_rows docstring).
+        # Receipts are staged for the first staged_rounds overflow rounds;
+        # rarer deeper overflow comes back as a dense per-shard gradient
+        # added to the scatter — exact dense-Adam semantics at ANY
+        # skew/shard count (routing.route_grad_rows docstring).
         oid_u, og_u, dense_u = rt.route_grad_rows(
             users, d_u, axis=FULL_AXES, n_shards=m, capacity=cap_u,
             r_local=params.user_emb.shape[0], plan=plan_u,
@@ -530,18 +533,17 @@ class ShardedTrainStep:
             anime, d_a, axis=FULL_AXES, n_shards=m, capacity=cap_a,
             r_local=params.anime_emb.shape[0], plan=plan_a,
         )
-        order_u, order_a = orders if orders is not None else (None, None)
         w_u, mu_u, nu_u, sumsq_u = sparse_adam_update(
             params.user_emb, opt.mu.user_emb, opt.nu.user_emb,
             oid_u, og_u, t, lr, l2=self.l2,
-            b1=B1, b2=B2, eps=KERAS_ADAM_EPS, vma=FULL_AXES,
-            dense_grad=dense_u, order=order_u,
+            b1=B1, b2=B2, eps=KERAS_ADAM_EPS, table_id=USER_TABLE_ID,
+            dense_grad=dense_u,
         )
         w_a, mu_a, nu_a, sumsq_a = sparse_adam_update(
             params.anime_emb, opt.mu.anime_emb, opt.nu.anime_emb,
             oid_a, og_a, t, lr, l2=self.l2,
-            b1=B1, b2=B2, eps=KERAS_ADAM_EPS, vma=FULL_AXES,
-            dense_grad=dense_a, order=order_a,
+            b1=B1, b2=B2, eps=KERAS_ADAM_EPS, table_id=ANIME_TABLE_ID,
+            dense_grad=dense_a,
         )
         # Per-shard sumsq -> full-table L2 value (dense-path loss parity).
         loss = loss + self.l2 * jax.lax.psum(sumsq_u + sumsq_a, self._baxes)
@@ -588,11 +590,9 @@ class ShardedTrainStep:
 
     def _build_train_planned(self):
         """shard_map'd train step taking PRECOMPUTED exchange plans —
-        (state, u, a, r, w, lr, plan_u, plan_a) for lazy_adam, plus
-        precomputed RECEIPT SORT ORDERS (routing.receipt_sort_order —
-        (plan_u, order_u), (plan_a, order_a)) for fused_adam, whose Adam
-        kernel then runs no per-step argsort at all. Only the
-        owner-side-update optimizers route through plans; None otherwise."""
+        (state, u, a, r, w, lr, plan_u, plan_a). Only the owner-side-update
+        optimizers (lazy_adam, fused_adam) route through plans; None
+        otherwise."""
         if self.routing != "alltoall" or self.optimizer not in (
             "lazy_adam", "fused_adam"
         ):
@@ -600,31 +600,20 @@ class ShardedTrainStep:
         specs = self._step_specs()
         batch_spec = self._batch_spec()
         pspec = self.plan_batch_spec()
-        base = (specs, batch_spec, batch_spec, batch_spec, batch_spec, P())
+        routed_step = (self._lazy_step if self.optimizer == "lazy_adam"
+                       else self._fused_step)
 
-        if self.optimizer == "lazy_adam":
-            def fn(state, users, anime, ratings, weights, lr, plan_u, plan_a):
-                return self._lazy_step(
-                    state, users, anime, ratings, weights, lr,
-                    plans=(plan_u, plan_a),
-                )
-
-            in_specs = base + (pspec, pspec)
-        else:
-            def fn(state, users, anime, ratings, weights, lr,
-                   plan_u, order_u, plan_a, order_a):
-                return self._fused_step(
-                    state, users, anime, ratings, weights, lr,
-                    plans=(plan_u, plan_a), orders=(order_u, order_a),
-                )
-
-            ospec = P(self._baxes)
-            in_specs = base + (pspec, ospec, pspec, ospec)
+        def fn(state, users, anime, ratings, weights, lr, plan_u, plan_a):
+            return routed_step(
+                state, users, anime, ratings, weights, lr,
+                plans=(plan_u, plan_a),
+            )
 
         return jax.shard_map(
             fn,
             mesh=self.mesh,
-            in_specs=in_specs,
+            in_specs=(specs, batch_spec, batch_spec, batch_spec, batch_spec,
+                      P(), pspec, pspec),
             out_specs=(specs, P(), P()),
         )
 
@@ -682,69 +671,30 @@ class ShardedTrainStep:
         return jax.jit(mapped)
 
 
-def build_plans_fn(step: ShardedTrainStep, table_rows=None):
+def build_plans_fn(step: ShardedTrainStep):
     """jitted (users [nb, B], anime [nb, B]) -> (plans_u, plans_a): the
     exchange plan of EVERY staged batch, computed once per fit.
 
     Plans are pure functions of (batch ids, shard count, capacity); the
     staged epoch fixes batch composition at stage time (per-epoch shuffle
     permutes batch ORDER only), so this one-time lax.map amortizes the
-    per-step batch argsort + segment machinery — measured as the dominant
-    non-bandwidth cost of the routed step (NOTES_PERF.md) — across all
-    epochs. Stacked plan pytrees have leading dim nb and ride the epoch
-    scan as xs.
-
-    For ``optimizer='fused_adam'`` pass ``table_rows=(n_users_padded,
-    n_anime_padded)``: each table's entry becomes ``(plan, receipt_order)``
-    where receipt_order is routing.receipt_sort_order — the owner-side
-    grouping sort the fused Adam kernel would otherwise recompute EVERY
-    step (~0.8 ms/table at B=10k).
+    per-step batch argsort + segment machinery across all epochs. Stacked
+    plan pytrees have leading dim nb and ride the epoch scan as xs.
     """
     m = step._n_shards
-    fused = step.optimizer == "fused_adam"
-    if fused and table_rows is None:
-        raise ValueError(
-            "build_plans_fn needs table_rows=(n_users_padded, "
-            "n_anime_padded) for fused_adam (receipt-order precompute)"
+
+    def per_table(ids_all, cap):
+        return jax.lax.map(
+            lambda ids: rt.make_plan(ids, m, cap, FULL_AXES), ids_all
         )
-    if fused:
-        for label, rows in zip(("n_users", "n_anime"), table_rows):
-            if rows % m:
-                raise ValueError(
-                    f"table_rows {label}={rows} not divisible by the "
-                    f"{m}-shard mesh: pass the PADDED row counts "
-                    "(place_state pads tables to a shard multiple) or the "
-                    "precomputed receipt orders would silently mis-group "
-                    "ids against the runtime shard tables"
-                )
-
-    def per_table(ids_all, cap, r_local):
-        def one(ids):
-            plan = rt.make_plan(ids, m, cap, FULL_AXES)
-            if not fused:
-                return plan
-            order = rt.receipt_sort_order(
-                ids, axis=FULL_AXES, n_shards=m, capacity=cap,
-                r_local=r_local, plan=plan,
-            )
-            return plan, order
-
-        return jax.lax.map(one, ids_all)
 
     def fn(users, anime):  # device-local [nb, B_local]
         cap_u = step._capacity(users.shape[1])
         cap_a = step._capacity(anime.shape[1])
-        ru = ra = None
-        if fused:
-            ru = table_rows[0] // m
-            ra = table_rows[1] // m
-        return per_table(users, cap_u, ru), per_table(anime, cap_a, ra)
+        return per_table(users, cap_u), per_table(anime, cap_a)
 
-    pspec = step.plan_batch_spec()
-    if fused:
-        pspec = (pspec, P(step._baxes))
     stacked = jax.tree.map(
-        lambda s: P(None, *tuple(s)), pspec,
+        lambda s: P(None, *tuple(s)), step.plan_batch_spec(),
         is_leaf=lambda x: isinstance(x, P),
     )
     in_spec = P(None, step._baxes)
@@ -785,17 +735,8 @@ def build_epoch_fn(step: ShardedTrainStep, shuffle: bool, planned: bool = False)
             "owner-side optimizer (lazy_adam / fused_adam)"
         )
 
-    fused = step.optimizer == "fused_adam"
-
     def _scan_train(state, xs, lr):
-        if planned and fused:
-            def body(state, batch):
-                u, a, r, w, (pu, ou), (pa, oa) = batch
-                new_state, loss, mse = planned_mapped(
-                    state, u, a, r, w, lr, pu, ou, pa, oa
-                )
-                return new_state, (loss, mse, jnp.sum(w))
-        elif planned:
+        if planned:
             def body(state, batch):
                 u, a, r, w, pu, pa = batch
                 new_state, loss, mse = planned_mapped(state, u, a, r, w, lr,

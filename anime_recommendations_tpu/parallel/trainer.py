@@ -13,9 +13,9 @@ Drop-in replacement for train.Trainer on a ('data','model') mesh. Handles:
     (routing.route_grads_lazy_adam) — per-step table traffic stays
     O(touched rows), never O(table)
   * optimizer="fused_adam" (production): owner-side fused dense-Adam —
-    per-unique-row grad sums routed home (routing.route_grad_rows), ONE
-    Pallas pass per local table shard, exact dense semantics even under
-    multi-round overflow
+    per-unique-row grad sums routed home (routing.route_grad_rows), one
+    sparse_adam_update per local table shard, exact dense semantics even
+    under multi-round overflow
 
 The reference scaled lr/batch by num_replicas_in_sync but then never used
 the scaled values (neural_network.py:176-177 vs :213 — dead code, SURVEY.md
@@ -68,8 +68,8 @@ class ShardedTrainer(Trainer):
     # expectation, routing.default_capacity); -1 = MEASURED per fit: sample
     # real batches through routing.plan_stats and size slots to the
     # observed max bucket (+25% + 8 skew margin) — on uniform batches this
-    # halves the exchange's row movement vs the 2x-expectation default
-    # (SCALING.md round-5 headroom note), and a rare overflow still
+    # halves the exchange's row movement vs the 2x-expectation default,
+    # and a rare overflow still
     # resolves exactly via an extra round. Lower = less wire per round but
     # more overflow rounds under skew; see the plan-stats log.
     capacity: int | None = None
@@ -78,8 +78,8 @@ class ShardedTrainer(Trainer):
         super().__post_init__()  # optimizer validation
         # bf16+stochastic-rounding moments ride the fused_adam machinery
         # untouched: the moments' dtype in the placed STATE drives the
-        # kernel (ops/fused_adam._sr_store), so normalize the name here
-        # and cast at _init_state.
+        # update's stores (ops/fused_adam.sparse_adam_update), so normalize
+        # the name here and cast at _init_state.
         self._bf16_moments = self.optimizer == "fused_adam_bf16m"
         if self._bf16_moments:
             self.optimizer = "fused_adam"
@@ -169,9 +169,6 @@ class ShardedTrainer(Trainer):
         n_users_p = pad_rows_for_shards(n_users, m)
         shard_anime = self.shard_anime or self.routing == "alltoall"
         n_anime_p = pad_rows_for_shards(n_anime, m) if shard_anime else n_anime
-        # Stashed for the staged-plan builder (fused receipt orders need
-        # the per-shard table row counts).
-        self._table_rows = (n_users_p, n_anime_p)
         state = init_train_state(rng, n_users_p, n_anime_p, self.embedding_size)
         if self._bf16_moments:
             from anime_recommendations_tpu.train.trainer import (
@@ -296,19 +293,10 @@ class ShardedTrainer(Trainer):
         # Routed owner-side optimizers: precompute every batch's exchange
         # plan ONCE per fit (sharded_train.build_plans_fn) — batch
         # composition is frozen above, so the plans stay valid for every
-        # epoch and the per-step plan + grouping-argsort machinery leaves
-        # the scan body (fused_adam additionally precomputes the
-        # owner-side receipt sort orders; needs the table shapes stashed
-        # by _init_state — a caller-provided initial_state skips that, and
-        # then the epoch falls back to in-step plans).
-        table_rows = getattr(self, "_table_rows", None)
-        planned = self._step._train_planned_mapped is not None and (
-            self.optimizer != "fused_adam" or table_rows is not None
-        )
+        # epoch and the per-step plan machinery leaves the scan body.
+        planned = self._step._train_planned_mapped is not None
         plans = (
-            build_plans_fn(self._step, table_rows)(
-                train_arrays[0], train_arrays[1]
-            )
+            build_plans_fn(self._step)(train_arrays[0], train_arrays[1])
             if planned else None
         )
         epoch_fn = build_epoch_fn(self._step, self.shuffle_each_epoch, planned)

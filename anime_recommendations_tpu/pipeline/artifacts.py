@@ -96,11 +96,13 @@ class ArtifactStore:
 
     def log_frame(self, name: str, frame, filename: str | None = None,
                   index: bool = False, **kwargs) -> ArtifactHandle:
-        """Convenience: write a DataFrame as <filename or name>.csv/.parquet."""
+        """Convenience: write a DataFrame as <filename or name>, a pandas
+        pickle for ``.pkl`` names (the pipeline's own inter-step frames,
+        dtypes kept, nothing beyond pandas needed) and CSV otherwise."""
         filename = filename or name
         tmp = self.root / f".tmp_{_safe_dirname(filename)}"
-        if filename.endswith(".parquet"):
-            frame.to_parquet(tmp, index=index)
+        if filename.endswith(".pkl"):
+            frame.to_pickle(tmp)
         else:
             frame.to_csv(tmp, index=index)
         try:

@@ -6,8 +6,8 @@ conda subprocess per step; every cross-step datum round-trips through W&B
 ArtifactStore. Step names and artifact names mirror config.yaml so a
 reference user finds the same surface:
 
-  ingest          -> full_data_set.parquet, all_anime.csv, synopses.csv
-  preprocess      -> preprocessed_stats.parquet
+  ingest          -> full_data_set.pkl, all_anime.csv, synopses.csv
+  preprocess      -> preprocessed_stats.pkl
   train           -> anime_nn_model.npz, anime_nn_history.csv,
                      neural_network_loss.png, vocab.json
   similar_anime   -> <cleaned_query>.csv
@@ -102,8 +102,8 @@ class PipelineRunner:
     def step_ingest(self) -> None:
         raw = load_raw(self.cfg.data, cache_dir=self.run_dir / "cache")
         self.store.log_frame(
-            "full_data_set.parquet", raw.ratings,
-            filename="full_data_set.parquet", type="raw_data",
+            "full_data_set.pkl", raw.ratings,
+            filename="full_data_set.pkl", type="raw_data",
             metadata={"source": raw.source, "rows": len(raw.ratings)},
         )
         self.store.log_frame(
@@ -116,7 +116,7 @@ class PipelineRunner:
         )
 
     def step_preprocess(self) -> None:
-        raw = pd.read_parquet(self.store.get("full_data_set.parquet:latest").file())
+        raw = pd.read_pickle(self.store.get("full_data_set.pkl:latest").file())
         clean, stats = preprocess_ratings(
             raw,
             num_reviews=self.cfg.data.num_reviews,
@@ -125,8 +125,8 @@ class PipelineRunner:
             half_watched=self.cfg.data.drop_half_watched,
         )
         self.store.log_frame(
-            "preprocessed_stats.parquet", clean,
-            filename="preprocessed_stats.parquet", type="preprocessed_data",
+            "preprocessed_stats.pkl", clean,
+            filename="preprocessed_stats.pkl", type="preprocessed_data",
             metadata={
                 "rows_in": stats.rows_in, "rows_out": stats.rows_out,
                 "n_users": stats.n_users, "n_anime": stats.n_anime,
@@ -139,14 +139,14 @@ class PipelineRunner:
 
         from anime_recommendations_tpu.parallel.distributed import initialize
 
-        # Multi-host runtime (TPUClusterResolver.connect() analog,
+        # Multi-host runtime (the reference's cluster-resolver connect,
         # /root/reference/neural_network/neural_network.py:142-144): no-op
-        # unless a coordinator is configured via env/auto-detection.
+        # unless a coordinator is configured via env.
         initialize()
 
         mc = self.cfg.model
-        clean = pd.read_parquet(
-            self.store.get("preprocessed_stats.parquet:latest").file()
+        clean = pd.read_pickle(
+            self.store.get("preprocessed_stats.pkl:latest").file()
         )
         vocab = build_vocab(clean)
         encoded = encode_frame(clean, vocab)[["user", "anime", "rating"]]
@@ -276,8 +276,8 @@ class PipelineRunner:
             model_art = self.store.get("anime_nn_model.npz:latest")
             params, bn = load_model(model_art.file("anime_nn_model.npz"))
             vocab = Vocab.load(model_art.file("vocab.json"))
-            clean = pd.read_parquet(
-                self.store.get("preprocessed_stats.parquet:latest").file()
+            clean = pd.read_pickle(
+                self.store.get("preprocessed_stats.pkl:latest").file()
             )
             encoded = encode_frame(clean, vocab)
             catalog = Catalog.from_files(
@@ -300,7 +300,7 @@ class PipelineRunner:
         records source=synthetic). Configured query names/IDs target the real
         MyAnimeList data and cannot resolve against a synthetic catalog."""
         try:
-            art = self.store.get("full_data_set.parquet:latest")
+            art = self.store.get("full_data_set.pkl:latest")
             return art.metadata.get("source") == "synthetic"
         except Exception:
             return False

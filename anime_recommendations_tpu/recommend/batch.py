@@ -1,11 +1,9 @@
 """Batched retrieval entry points (production serving path).
 
 The per-request functions (similar_anime/model_recs/...) each dispatch one
-kernel per query for reference-parity ergonomics. These batched variants
-amortize: MANY queries ride ONE fused kernel call (the [Qp, B] kernel
-layout keeps full lane occupancy up to hundreds of queries), then one
-vectorized metadata join. Measured >100K queries/s over the 350K-row user
-table on one v5e chip (NOTES_PERF.md).
+top-k program per query for reference-parity ergonomics. These batched
+variants amortize: MANY queries ride ONE top-k call (one matmul reads the
+table once for all of them), then one vectorized metadata join.
 """
 
 from __future__ import annotations
@@ -24,7 +22,7 @@ def similar_anime_batch(
     types: list[str] | None = None,
     genres: list | None = None,
 ) -> list[dict]:
-    """Similar-anime for many queries in one kernel call.
+    """Similar-anime for many queries in one top-k call.
 
     Returns one record per query: {"query", "anime_ids", "names",
     "similarities"}. Unknown names raise KeyError (same as the scalar
@@ -72,12 +70,12 @@ def model_recs_batch(
     types: list[str] | None = None,
     genres: list | None = None,
 ) -> list[dict]:
-    """Model-predicted top-n for many users in one kernel call per shared
+    """Model-predicted top-n for many users in one top-k call per shared
     filter set. Each user still gets an individual watched-set mask; users
-    are grouped so the kernel's shared row mask holds the common filters
+    are grouped so the shared row mask holds the common filters
     and per-user exclusion happens by post-masking candidate overlap.
 
-    For exactness with per-user watched sets, the kernel asks for
+    For exactness with per-user watched sets, the top-k call asks for
     ``n_recs + max_watched_overlap`` candidates and drops watched ones; if
     a user has watched more than the candidate buffer allows, their result
     may be shorter (guarded below by a generous buffer).
@@ -129,10 +127,10 @@ def similar_users_batch(
     TV_only: bool = True,
     include_faves: bool = True,
 ) -> list[dict]:
-    """Similar-users for many query users in one kernel call.
+    """Similar-users for many query users in one top-k call.
 
-    One fused cosine scan over the user table for ALL queries (per-query
-    self-exclusion as a kernel mask), then the vectorized favorite-anime
+    One cosine scan over the user table for ALL queries (per-query
+    self-exclusion as a mask), then the vectorized favorite-anime
     summaries (similar_users.get_fave_anime) per result row.
     ``include_faves=False`` skips the favorites strings for id-only
     workloads. Returns one record per query: {"query", "similar_users",

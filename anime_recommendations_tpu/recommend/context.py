@@ -41,15 +41,11 @@ class RecContext:
     anime_qt: object = None
     user_qt: object = None
     # Scan handles (what anime_table()/user_table() return): a plain array,
-    # a QuantizedTable, or — default — a ShuffledTable wrapping either
-    # (build-time random row order restores the packed extraction's
-    # random-placement collision model on clustered trained tables; see
-    # ops/topk.ShuffledTable).
+    # a QuantizedTable, or an IVFIndex.
     anime_scan: object = None
     user_scan: object = None
     # Extra kwargs merged into every cosine_topk/score_topk call the
-    # recommenders make (e.g. {"interpret": False} to force the compiled
-    # XLA small-table path on a CPU-hosted context — the serve host bench).
+    # recommenders make ({"probes": n} on an IVF context).
     topk_kwargs: dict = field(default_factory=dict)
     _by_user: "pd.core.groupby.DataFrameGroupBy" = field(default=None, repr=False)
     _vocab_anime_meta: pd.DataFrame = field(default=None, repr=False)
@@ -72,9 +68,7 @@ class RecContext:
         catalog: Catalog,
         ratings: pd.DataFrame,
         retrieval_dtype=None,
-        shuffle_tables: bool = True,
         device=None,
-        topk_kwargs: dict | None = None,
         ann: str = "off",
         ann_probes: int = 16,
     ) -> "RecContext":
@@ -90,18 +84,8 @@ class RecContext:
         catalogs beyond ~1M rows, where even the int8 full scan exceeds
         the latency budget. Approximate (recall set by ann_probes); the
         default exact scans remain right for reference-scale tables.
-
-        ``shuffle_tables`` (default True) stores the SCAN copies in a
-        fixed random physical row order (ops/topk.shuffle_rows): trained
-        tables cluster hot, mutually-similar rows at adjacent vocab
-        indices, which can overflow the packed extraction's per-group
-        candidate depth (measured two-stage-vs-exact overlap 0.80 on a
-        zipf-trained table; 1.0 after shuffling). ``anime_norm``/
-        ``user_norm`` stay in LOGICAL vocab order for query-row reads;
-        masks and result indices translate inside cosine_topk/score_topk.
         """
         from anime_recommendations_tpu.ops.quantized import quantize_rows
-        from anime_recommendations_tpu.ops.topk import ShuffledTable, shuffle_rows
 
         anime_norm, user_norm = normalized_tables(params)
         int8 = retrieval_dtype in ("int8", "i8")
@@ -137,20 +121,12 @@ class RecContext:
             if ann == "ivf":
                 from anime_recommendations_tpu.ops.ivf import build_ivf
 
-                # IVF gathers rows by explicit id, so the clustered-rows
-                # extraction hazard (and the shuffle that defuses it)
-                # doesn't apply; int8 storage reuses the quantized recipe.
+                # int8 storage reuses the quantized recipe.
                 index = build_ivf(
                     norm, seed=seed,
                     storage="int8" if int8 else "f32",
                 )
                 return index, None
-            if shuffle_tables:
-                st = shuffle_rows(norm, seed=seed)
-                if int8:
-                    qt = put(quantize_rows(st.table))
-                    return ShuffledTable(qt, st.perm, st.inv), qt
-                return st, None
             if int8:
                 qt = put(quantize_rows(norm))
                 return qt, qt
@@ -158,9 +134,7 @@ class RecContext:
 
         anime_scan, anime_qt = scan_handle(anime_norm, seed=11)
         user_scan, user_qt = scan_handle(user_norm, seed=13)
-        topk_kwargs = dict(topk_kwargs or {})
-        if ann == "ivf":
-            topk_kwargs.setdefault("probes", ann_probes)
+        topk_kwargs = {"probes": ann_probes} if ann == "ivf" else {}
 
         return cls(
             vocab=vocab,
@@ -176,7 +150,7 @@ class RecContext:
             topk_kwargs=topk_kwargs,
         )
 
-    # ---- retrieval-table accessors (array / QuantizedTable / ShuffledTable) ----
+    # ---- retrieval-table accessors (array / QuantizedTable / IVFIndex) ----
 
     def anime_table(self):
         """The anime table to hand to cosine_topk/score_topk."""

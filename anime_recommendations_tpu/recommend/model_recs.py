@@ -5,11 +5,11 @@ recommendations (:373-456) + get_unwatched (:132-156): predicted rating of
 every anime the user hasn't rated (intersected with the trained vocab),
 ranked descending, optionally restricted by type/genre.
 
-TPU-first: the reference builds a [|unwatched|, 2] host array and calls
+The reference builds a [|unwatched|, 2] host array and calls
 model.predict; here the unwatched set is a row MASK over the anime table
-and the whole predict-all + mask + top-n runs as one fused Pallas kernel
+and the whole predict-all + mask + top-n runs as one device program
 (ops/scoring.score_topk) with the Dense+BatchNorm+sigmoid head folded to
-an affine-sigmoid inside the kernel.
+an affine-sigmoid inside it.
 
 Output schema matches figure_file/User_ID_153695_model_recs.csv:
 Name, Prediction, Genres, Source, anime_id, Sypnopsis, Episodes,

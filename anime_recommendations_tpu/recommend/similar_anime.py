@@ -1,10 +1,10 @@
 """Similar-anime retrieval.
 
 Behavior parity with /root/reference/similar_anime/similar_anime.py
-anime_recs (:364-471), re-architected TPU-first: the full-scores
-np.dot + argsort + O(N) Python enrichment loop becomes one fused Pallas
-top-k with type/genre/self filters pushed into the kernel as row masks,
-followed by a single vectorized metadata join.
+anime_recs (:364-471), re-architected for the device: the full-scores
+np.dot + argsort + O(N) Python enrichment loop becomes one masked top-k
+program with type/genre/self filters applied as row masks, followed by a
+single vectorized metadata join.
 
 Output schema matches figure_file/anime_similar_to_SilentMöbius.csv:
 Name, Similarity, Genres, Sypnopsis, Episodes, Japanese name, Studios,

@@ -2,8 +2,8 @@
 
 Behavior parity with /root/reference/similar_users/similar_users.py
 find_similar_users (:262-314) + get_fave_anime (:203-256), with the cosine
-scan running through the fused Pallas kernel (self-exclusion as a kernel
-mask instead of post-filtering) and favorite-anime selection vectorized.
+scan running as one masked top-k program (self-exclusion as a mask
+instead of post-filtering) and favorite-anime selection vectorized.
 
 Note: the reference's go() crashes as written (get_weights() called with no
 model, similar_users.py:322, recorded in SURVEY.md); this implements the

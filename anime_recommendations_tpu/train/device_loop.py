@@ -1,9 +1,8 @@
 """Device-resident epoch loop: one launch per epoch via lax.scan.
 
-The per-step path (train/trainer.py) launches one XLA program per batch;
-host dispatch then bounds throughput (~1 ms/launch in remote-attached
-environments, ~50-100 us even on a co-located TPU VM). Here the training
-data lives ON DEVICE for the whole run and each epoch is ONE program:
+The per-step path (train/trainer.py) launches one XLA program per batch,
+so host dispatch can bound throughput. Here the training data lives ON
+DEVICE for the whole run and each epoch is ONE program:
 
   perm = jax.random.permutation(key, n_padded)       # device-side shuffle
   scan over batches: gather rows by perm slice -> train_step math
@@ -55,13 +54,12 @@ def stage(
     With ``seed`` set, rows are host-shuffled once here; per-epoch
     reshuffling then permutes SHUFFLE_BLOCK-row granules on device (see
     train_epoch). ``seed=None`` keeps dataset order (for shuffle-off runs
-    that must match the per-step path batch-for-batch). Element-wise
-    random gathers run at ~12 ns/element on TPU (scalar-gather bound) — an
-    exact per-element epoch permutation costs more than the training math —
-    while 2 KB contiguous granules ride the DMA engine at streaming
-    bandwidth. With the one-time host shuffle, granules are random example
-    sets and epoch batches are random unions of granules (the standard
-    shuffle-window trade).
+    that must match the per-step path batch-for-batch). Permuting
+    contiguous 2 KB granules reads memory in long runs, where an exact
+    per-element permutation is a random gather per element. With the
+    one-time host shuffle, granules are random example sets and epoch
+    batches are random unions of granules (the standard shuffle-window
+    trade).
     """
     n = len(ds)
     n_pad = -(-max(n, 1) // batch_size) * batch_size
@@ -112,10 +110,9 @@ def train_epoch(
     n = data.n
     nb = n // batch_size
     # Device-side shuffle at SHUFFLE_BLOCK granularity: one permuted copy per
-    # epoch via contiguous-granule gathers (~streaming bandwidth), instead of
-    # an exact per-element permutation (scalar-gather bound, ~0.36 ms/step
-    # equivalent at batch 10k — slower than the optimizer math it feeds).
-    # stage() host-shuffled rows once, so granules are random example sets.
+    # epoch via contiguous-granule gathers instead of an exact per-element
+    # permutation. stage() host-shuffled rows once, so granules are random
+    # example sets.
     # Granule size never depends on n's factorization (an odd n used to
     # silently degrade to g=1 scalar gathers): full SHUFFLE_BLOCK granules
     # are permuted over the head and the sub-granule tail (< g rows, already
@@ -134,10 +131,10 @@ def train_epoch(
 
     if optimizer in ("fused_adam", "fused_adam_bf16m"):
         # (bf16m: same code path — the moments' dtype in ``state`` drives
-        # the kernel's storage precision, train/trainer.cast_table_moments.)
-        # Software-pipelined scan: step i's kernel updates the tables AND
-        # gathers the rows step i+1 will consume, so the tables have a
-        # single consumer per step (no copy-insertion tax — train/fused.py
+        # the update's storage precision, train/trainer.cast_table_moments.)
+        # Software-pipelined scan: step i updates the tables AND gathers
+        # the rows step i+1 will consume from the updated tables, so the
+        # tables have a single consumer per step (train/fused.py
         # fused_train_step_pipelined). The prologue gathers batch 0's rows
         # once per epoch.
         from anime_recommendations_tpu.train.fused import (

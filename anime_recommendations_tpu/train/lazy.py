@@ -3,7 +3,7 @@
 The exact-parity path (train/trainer.py, device_loop.py) reproduces Keras
 semantics: the full-table L2 regularizer makes every gradient dense, so each
 step streams read+write over W, mu, nu of BOTH tables (~330 MB at reference
-shapes) — the measured HBM-bandwidth wall (NOTES_PERF.md).
+shapes).
 
 This module implements the standard production-recommender alternative
 (TensorFlow Addons LazyAdam / PyTorch SparseAdam): Adam moments, weight

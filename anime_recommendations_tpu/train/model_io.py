@@ -4,7 +4,7 @@ The reference passes trained weights between steps as Keras .h5 artifacts
 (neural_network.py:219-275). Here the exported format is a single .npz
 holding every TwoTowerParams leaf + BatchNorm state + the vocab sizes —
 dependency-free, memory-mappable, and loadable without JAX for inspection.
-Orbax checkpoints (train/checkpoint.py) remain the in-training format.
+The async checkpoints (train/checkpoint.py) remain the in-training format.
 """
 
 from __future__ import annotations

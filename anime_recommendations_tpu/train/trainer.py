@@ -2,14 +2,14 @@
 
 Replaces the reference's Keras model.fit stack (neural_network.py:141-217):
   * per-epoch LearningRateScheduler  -> lr_for_epoch, lr fed as a traced scalar
-  * ModelCheckpoint(best val_loss)   -> best-state retention (+ Orbax on disk)
+  * ModelCheckpoint(best val_loss)   -> best-state retention (+ .npz on disk)
   * EarlyStopping(patience=3,
       restore_best_weights=True)     -> patience counter + best-state restore
   * history csv/json                 -> history frame with the golden header
                                         (",loss,mse,val_loss,val_mse,lr")
 
-TPU-first: one jitted train step with donated state (no host round-trips of
-the tables), static batch shapes, Adam expressed as optax.scale_by_adam with
+One jitted train step with donated state (no host round-trips of the
+tables), static batch shapes, Adam expressed as optax.scale_by_adam with
 the learning rate applied inside the step so the schedule never retriggers
 compilation. Optimizer epsilon matches Keras Adam (1e-7).
 """
@@ -73,8 +73,8 @@ def init_train_state(
 
 def cast_table_moments(state: TrainState, dtype) -> TrainState:
     """Store the EMBEDDING tables' Adam moments in ``dtype`` (bf16 for the
-    fused_adam_bf16m optimizer — halves the moment HBM traffic; the fused
-    kernel's update math stays f32). Scalar-head moments stay f32."""
+    fused_adam_bf16m optimizer — halves the moment memory traffic; the
+    update math stays f32). Scalar-head moments stay f32."""
     opt = state.opt_state
 
     def cast(p: TwoTowerParams) -> TwoTowerParams:
@@ -155,28 +155,23 @@ class Trainer:
     device_loop: bool = False
     # Sorted-scatter embedding VJP in the device loop (True = both tables,
     # "user" = big table only, False = plain). Changes only f32 summation
-    # order over duplicate in-batch ids; measured +27% step throughput
-    # combined with the granule shuffle (NOTES_PERF.md).
+    # order over duplicate in-batch ids.
     sorted_scatter: bool | str = True
     # "adam" = exact Keras-parity dense Adam (full-table L2 every step).
     # "lazy_adam" = row-sparse Adam (train/lazy.py): only touched rows get
     # moments/decay/updates — the TF-Addons-LazyAdam semantics used by
     # production recommenders. Much faster at scale; documented deviations.
-    # "fused_adam" = dense-Adam SEMANTICS via one Pallas pass per table
-    # (train/fused.py): same math as "adam" to ~2^-17 relative, at the
-    # 6-HBM-pass bandwidth floor instead of 8+.
+    # "fused_adam" = dense-Adam SEMANTICS from the gathered rows' grads
+    # (train/fused.py, ops/fused_adam.sparse_adam_update): same math as
+    # "adam" up to f32 summation order.
     # "fused_adam_bf16m" = fused_adam with the embedding-table Adam
-    # moments STORED bf16 (update math stays f32): 6 -> 4 f32-equivalent
-    # HBM passes per table, measured 2.56 -> 1.85 ms/step on the isolated
-    # 350K two-table update (runs_full/exp_r5_bf16m.py). The stores use
-    # STOCHASTIC rounding on TPU (ops/fused_adam._sr_store): nearest-
-    # rounded bf16 silently freezes nu's 1e-3-relative EMA increments and
-    # measurably wrecks accuracy (reference-scale val MSE 0.0348 vs
-    # 0.0213); SR keeps the EMA unbiased (accuracy record:
-    # artifacts/convergence/result_reference_fused_adam_bf16m.json).
-    # Scalar-head moments stay f32. Also accepted by ShardedTrainer
-    # (the routed owner-side fused update adapts by the state's moment
-    # dtype).
+    # moments STORED bf16 (update math stays f32), halving the moments'
+    # memory traffic. The stores use STOCHASTIC rounding on every backend
+    # (ops/fused_adam.stochastic_round_bf16): nearest-rounded bf16
+    # silently freezes nu's 1e-3-relative EMA increments; SR keeps the
+    # EMA unbiased. Scalar-head moments stay f32. Also accepted by
+    # ShardedTrainer (the routed owner-side fused update adapts by the
+    # state's moment dtype).
     optimizer: str = "adam"
     # "cosine" = the reference's Dot(normalize=True) head (parity).
     # "dot" = diagnostic unnormalized-dot head (two_tower.dot_merge) for
@@ -188,9 +183,9 @@ class Trainer:
                                   "fused_adam_bf16m"):
             raise ValueError(
                 f"unknown optimizer {self.optimizer!r}: choose 'adam' "
-                "(exact Keras parity), 'fused_adam' (same semantics, one "
-                "Pallas pass per table), 'fused_adam_bf16m' (bf16-stored "
-                "table moments), or 'lazy_adam' (row-sparse)"
+                "(exact Keras parity), 'fused_adam' (same semantics from "
+                "row gradients), 'fused_adam_bf16m' (bf16-stored table "
+                "moments), or 'lazy_adam' (row-sparse)"
             )
         if self.merge not in ("cosine", "dot"):
             raise ValueError(f"unknown merge {self.merge!r}")
@@ -256,7 +251,7 @@ class Trainer:
         resume: bool = False,
     ) -> TrainResult:
         """Train with early stopping; ``resume=True`` restores the latest
-        Orbax checkpoint under checkpoint_dir (epoch-level resume — a
+        checkpoint under checkpoint_dir (epoch-level resume — a
         capability the reference lacks, SURVEY.md §5.4)."""
         rng = jax.random.PRNGKey(self.seed)
         state = initial_state or self._init_state(rng, n_users, n_anime)

@@ -1,4 +1,4 @@
-"""Typed config: defaults mirror config.yaml, YAML round-trip, overrides."""
+"""Typed config: defaults mirror config.yaml, file round-trips, overrides."""
 
 import pytest
 
@@ -28,7 +28,7 @@ def test_yaml_roundtrip(tmp_path):
     cfg.model.batch_size = 512
     path = tmp_path / "cfg.yaml"
     cfg.to_yaml(path)
-    loaded = Config.from_yaml(path)
+    loaded = Config.from_file(path)
     assert loaded.model.batch_size == 512
     assert loaded.similarity.types == ("TV", "Movie")
 
@@ -47,3 +47,35 @@ def test_unknown_key_rejected():
         Config().with_overrides(["model.nope=1"])
     with pytest.raises(KeyError):
         Config.from_dict({"nope": {"a": 1}})
+
+
+def test_json_roundtrip(tmp_path):
+    import json
+
+    cfg = Config()
+    cfg.similarity.anime_query = "YuuYuu☆Hakusho!"
+    cfg.model.batch_size = 256
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg.to_dict()))
+    loaded = Config.from_file(path, overrides=["model.epochs=3"])
+    assert loaded.model.batch_size == 256 and loaded.model.epochs == 3
+    assert loaded.similarity.anime_query == "YuuYuu☆Hakusho!"
+    assert loaded.users.ID_rec_genres == ("Action", "None", None)
+
+
+def test_override_values_parse_as_json_or_plain_strings():
+    cfg = Config().with_overrides([
+        "similarity.anime_query=Cowboy Bebop",
+        "similarity.retrieval_dtype=int8",
+        'similarity.types=["TV", "OVA"]',
+        "model.epochs=3",
+        "model.start_lr=2e-5",
+        "users.TV_only=true",
+        'users.ID_rec_genres=["Action", null]',
+    ])
+    assert cfg.similarity.anime_query == "Cowboy Bebop"
+    assert cfg.similarity.retrieval_dtype == "int8"
+    assert cfg.similarity.types == ("TV", "OVA")
+    assert cfg.model.epochs == 3 and cfg.model.start_lr == 2e-5
+    assert cfg.users.TV_only is True
+    assert cfg.users.ID_rec_genres == ("Action", None)

@@ -4,9 +4,9 @@ The reference's accuracy baseline is its committed training history on the
 (stripped) 7M-row parquet (/root/reference/figure_file/anime_nn_history.csv
 row 14: train MSE 0.05074 / val MSE 0.07199). The harness substitutes a
 planted low-rank teacher so convergence and ranking recovery become
-measurable claims; the archived reference-scale result lives in
-artifacts/convergence/ (run via `python -m
-anime_recommendations_tpu.train.convergence --scale reference`). This test
+measurable claims; the reference-scale run is `python -m
+anime_recommendations_tpu.train.convergence --scale reference` (not yet
+measured on the GPU). This test
 runs the same harness end-to-end at CI scale with thresholds calibrated on
 the committed CI_SCALE spec.
 """

@@ -4,9 +4,10 @@ Exercises the actual multi-host code path (parallel/distributed.py):
 jax.distributed.initialize over a gRPC coordinator, a global mesh spanning
 both processes' devices, host-local batch feeding via host_batch_slice +
 make_array_from_process_local_data, and a ShardedTrainStep whose collectives
-cross the process boundary. The reference's equivalent surface is
-TPUClusterResolver.connect() + TPUStrategy training
-(/root/reference/neural_network/neural_network.py:142-144).
+cross the process boundary. The reference's equivalent surface is its
+cluster-resolver connect + distributed training
+(/root/reference/neural_network/neural_network.py:142-144). On virtual CPU
+devices this is a rehearsal; on GPUs each process owns one card.
 """
 
 import json
@@ -84,11 +85,10 @@ def test_two_process_model_axis():
 
 
 def test_two_process_full_fit_matches_single_process(tmp_path):
-    """A FULL ShardedTrainer.fit under the 2-process runtime (VERDICT r3
-    ask 4): device epoch scan with precomputed exchange plans, on-mesh
-    holdout eval, owner-side fused Adam, best-checkpoint Orbax saves, and
-    a same-mesh RESUME — vs the reference's complete model.fit under
-    TPUStrategy (neural_network.py:174-217).
+    """A FULL ShardedTrainer.fit under the 2-process runtime: device epoch
+    scan with precomputed exchange plans, on-mesh holdout eval, owner-side
+    fused Adam, best-checkpoint saves, and a same-mesh RESUME — vs the
+    reference's complete distributed model.fit (neural_network.py:174-217).
 
     Assertions: (a) both processes report the identical loss curve (all
     metrics are mesh-psum'd); (b) the curve matches a SINGLE-process run

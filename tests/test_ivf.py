@@ -1,7 +1,7 @@
 """IVF clustered retrieval (ops/ivf.py): recall, exactness, spill, shapes.
 
-The IVF path serves catalogs beyond the exact scan's latency budget
-(NOTES_PERF round 5); these tests pin its contracts on CPU: probe-all is
+The IVF path serves catalogs beyond the exact scan's latency budget;
+these tests pin its contracts on CPU: probe-all is
 exact by construction, clustered data gives high recall at small probe
 counts, bucket overflow spills (never drops) rows, the query-chunk
 padding never leaks into results, and an ann="ivf" RecContext at

@@ -1,4 +1,4 @@
-"""Pallas kernels vs numpy oracles (interpret mode on the CPU mesh)."""
+"""Retrieval ops vs numpy oracles."""
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +42,7 @@ def oracle_topk(scores, k):
 
 def test_cosine_topk_matches_oracle(table):
     q = table[[3, 77, 123]]
-    vals, idx = cosine_topk(jnp.asarray(table), jnp.asarray(q), k=7, block_rows=128)
+    vals, idx = cosine_topk(jnp.asarray(table), jnp.asarray(q), k=7)
     vals, idx = np.asarray(vals), np.asarray(idx)
     for row, qi in enumerate([3, 77, 123]):
         ref_scores = table @ table[qi]
@@ -59,7 +59,7 @@ def test_exclude_self(table):
     q = table[[10, 20]]
     vals, idx = cosine_topk(
         jnp.asarray(table), jnp.asarray(q), k=5,
-        exclude=jnp.asarray([10, 20]), block_rows=128,
+        exclude=jnp.asarray([10, 20]),
     )
     idx = np.asarray(idx)
     assert 10 not in idx[0] and 20 not in idx[1]
@@ -72,7 +72,7 @@ def test_row_mask(table):
     keep[:100] = True
     vals, idx = cosine_topk(
         jnp.asarray(table), jnp.asarray(table[[5]]), k=4,
-        mask=jnp.asarray(keep), block_rows=128,
+        mask=jnp.asarray(keep),
     )
     assert np.asarray(idx).max() < 100
     ref_v, ref_i = oracle_topk((table @ table[5])[:100], 4)
@@ -84,7 +84,7 @@ def test_fewer_valid_rows_than_k(table):
     keep[:3] = True
     vals, idx = masked_topk(
         jnp.asarray(table), jnp.asarray(table[[0]]), k=8,
-        mask=jnp.asarray(keep), block_rows=128,
+        mask=jnp.asarray(keep),
     )
     vals = np.asarray(vals)[0]
     assert (vals[:3] > -1e29).all() and (vals[3:] <= -1e29).all()
@@ -93,7 +93,7 @@ def test_fewer_valid_rows_than_k(table):
 def test_unaligned_table_size():
     rng = np.random.default_rng(2)
     tab = normed(rng.normal(size=(333, 32)).astype(np.float32))
-    vals, idx = cosine_topk(jnp.asarray(tab), jnp.asarray(tab[[7]]), k=5, block_rows=128)
+    vals, idx = cosine_topk(jnp.asarray(tab), jnp.asarray(tab[[7]]), k=5)
     ref_v, _ = oracle_topk(tab @ tab[7], 5)
     np.testing.assert_allclose(np.asarray(vals)[0], ref_v, rtol=1e-5)
     assert np.asarray(idx).max() < 333
@@ -121,7 +121,7 @@ def test_score_topk_matches_model_predict():
     watched[[5, 6, 7]] = True
     vals, idx = score_topk(
         anime_n, user_n[user_index], head_affine(params, bn), k=6,
-        mask=jnp.asarray(~watched), block_rows=128,
+        mask=jnp.asarray(~watched),
     )
     vals, idx = np.asarray(vals)[0], np.asarray(idx)[0]
     masked = preds.copy()
@@ -133,7 +133,7 @@ def test_score_topk_matches_model_predict():
 
 def test_batched_queries_independent(table):
     qs = table[[1, 2, 3, 4, 5, 6, 7, 8, 9]]
-    vals, idx = cosine_topk(jnp.asarray(table), jnp.asarray(qs), k=3, block_rows=256)
+    vals, idx = cosine_topk(jnp.asarray(table), jnp.asarray(qs), k=3)
     for row, qi in enumerate(range(1, 10)):
         ref_v, _ = oracle_topk(table @ table[qi], 3)
         np.testing.assert_allclose(np.asarray(vals)[row], ref_v, rtol=1e-5)
@@ -141,53 +141,29 @@ def test_batched_queries_independent(table):
 
 def test_topk_k1_and_tiny_table():
     tab = normed(np.random.default_rng(5).normal(size=(12, 16)).astype(np.float32))
-    vals, idx = cosine_topk(jnp.asarray(tab), jnp.asarray(tab[[3]]), k=1, block_rows=128)
+    vals, idx = cosine_topk(jnp.asarray(tab), jnp.asarray(tab[[3]]), k=1)
     assert np.asarray(idx)[0, 0] == 3  # self is its own best match
-    vals, idx = cosine_topk(jnp.asarray(tab), jnp.asarray(tab[[3]]), k=12, block_rows=128)
+    vals, idx = cosine_topk(jnp.asarray(tab), jnp.asarray(tab[[3]]), k=12)
     assert sorted(np.asarray(idx)[0].tolist()) == list(range(12))
 
 
 def test_topk_large_k_across_blocks():
     rng = np.random.default_rng(6)
     tab = normed(rng.normal(size=(600, 32)).astype(np.float32))
-    vals, idx = cosine_topk(jnp.asarray(tab), jnp.asarray(tab[[0]]), k=50, block_rows=128)
+    vals, idx = cosine_topk(jnp.asarray(tab), jnp.asarray(tab[[0]]), k=50)
     ref = np.sort(tab @ tab[0])[::-1][:50]
     np.testing.assert_allclose(np.asarray(vals)[0], ref, rtol=1e-5)
 
 
 def test_topk_bf16_table_close_to_f32(table):
     q = table[[9]]
-    v32, i32 = cosine_topk(jnp.asarray(table), jnp.asarray(q), k=5, block_rows=128)
+    v32, i32 = cosine_topk(jnp.asarray(table), jnp.asarray(q), k=5)
     v16, i16 = cosine_topk(
         jnp.asarray(table, dtype=jnp.bfloat16),
-        jnp.asarray(q, dtype=jnp.bfloat16), k=5, block_rows=128,
+        jnp.asarray(q, dtype=jnp.bfloat16), k=5,
     )
     np.testing.assert_allclose(np.asarray(v16)[0], np.asarray(v32)[0], atol=2e-2)
     assert len(set(np.asarray(i16)[0]) & set(np.asarray(i32)[0])) >= 3
-
-
-def test_small_table_xla_path_matches_kernel_path():
-    # n <= block_rows + interpret=False routes to the dense XLA path (on
-    # remote TPUs a single-block Mosaic compile can queue for minutes);
-    # both paths must agree exactly.
-    rng = np.random.default_rng(11)
-    W = rng.standard_normal((100, 32)).astype(np.float32)
-    W /= np.linalg.norm(W, axis=1, keepdims=True)
-    q = W[:5]
-    mask = rng.uniform(size=100) > 0.4
-    excl = np.arange(5, dtype=np.int32)
-    kw = dict(mask=jnp.asarray(mask), exclude=jnp.asarray(excl))
-    v_x, i_x = masked_topk(jnp.asarray(W), jnp.asarray(q), 7,
-                           interpret=False, **kw)
-    v_k, i_k = masked_topk(jnp.asarray(W), jnp.asarray(q), 7,
-                           interpret=True, **kw)
-    np.testing.assert_array_equal(np.asarray(i_x), np.asarray(i_k))
-    np.testing.assert_allclose(np.asarray(v_x), np.asarray(v_k), rtol=1e-6)
-    # k > n pads with sentinels instead of erroring.
-    v_p, i_p = masked_topk(jnp.asarray(W[:4]), jnp.asarray(q), 6,
-                           interpret=False)
-    assert np.asarray(i_p).shape == (5, 6)
-    assert (np.asarray(i_p)[:, 4:] == -1).all()
 
 
 def test_quantized_topk_exact_after_rescore():
@@ -204,7 +180,7 @@ def test_quantized_topk_exact_after_rescore():
 
     vals, idx = quantized_topk(
         qt, jnp.asarray(q), k, mask=jnp.asarray(mask),
-        exclude=jnp.asarray(excl), block_rows=1024,
+        exclude=jnp.asarray(excl),
     )
     scores = q @ W.T
     scores[:, ~mask] = -np.inf
@@ -221,12 +197,8 @@ def test_quantized_topk_exact_after_rescore():
 
 
 def test_quantized_topk_default_block_covers_tail_rows():
-    """Regression: n=3000 with DEFAULT block_rows used to produce a 3008-row
-    block whose last 448 rows (past the 5 full 512-lane groups) were matmul'd
-    but never extraction candidates — true top-k rows in the tail were
-    silently dropped (a query's exact self-match missing from its results).
-    block_rows must always be a GROUP multiple so every row is a stage-1
-    candidate."""
+    """Queries drawn from the last rows of a 3000-row table: every row is a
+    stage-1 candidate, so each query's exact self-match comes back."""
     from anime_recommendations_tpu.ops.quantized import quantize_rows, quantized_topk
 
     rng = np.random.default_rng(33)
@@ -262,115 +234,112 @@ def test_quantized_topk_single_block_and_k_gt_valid():
     assert (vals[:, 5:] <= -1e29).all()
 
 
-def test_topk_threshold_skip_ascending_scores():
-    """Adversarial order for the running-threshold skip: scores strictly
-    increase with row index, so EVERY block beats the threshold and the
-    true top-k lives in the LAST block — a wrong skip would be visible."""
-    import numpy as np
-    from anime_recommendations_tpu.ops.topk import masked_topk
-
-    n, d = 4096 + 513, 16  # multi-block with a ragged tail
-    rng = np.random.default_rng(0)
-    q = rng.standard_normal((3, d)).astype(np.float32)
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    # Rows proportional to q0 with growing magnitude after normalization
-    # tricks don't apply (cosine is scale-free); instead build rows whose
-    # cosine with each query increases with index: interpolate toward q0.
-    base = rng.standard_normal((n, d)).astype(np.float32)
-    t = np.linspace(0, 1, n, dtype=np.float32)[:, None] ** 2
-    W = (1 - t) * base + t * 40.0 * q[0]
-    W /= np.linalg.norm(W, axis=1, keepdims=True)
-
-    vals, idx = masked_topk(
-        jnp.asarray(W), jnp.asarray(q), k=7, block_rows=1024, exact_scan=True
-    )
-    scores = W @ q.T
-    vals, idx = np.asarray(vals), np.asarray(idx)
-    for i in range(3):
-        # Value-exact (the construction saturates cosine near 1.0, so index
-        # sets are tie-ambiguous); indices must score what they claim.
-        np.testing.assert_allclose(
-            vals[i], np.sort(scores[:, i])[::-1][:7], rtol=1e-6, atol=1e-7
-        )
-        np.testing.assert_allclose(scores[idx[i], i], vals[i], rtol=1e-6)
-    # The default two-stage path on the same adversarial data: exact within
-    # the documented stage-1 tie window (module docstring).
-    vals2, idx2 = masked_topk(jnp.asarray(W), jnp.asarray(q), k=7,
-                              block_rows=1024)
-    vals2, idx2 = np.asarray(vals2), np.asarray(idx2)
-    for i in range(3):
-        np.testing.assert_allclose(scores[idx2[i], i], vals2[i], rtol=1e-6)
-        np.testing.assert_allclose(
-            vals2[i], np.sort(scores[:, i])[::-1][:7], rtol=4e-3, atol=2e-4
-        )
-
-
-def _adversarial_tied_table():
-    """Hundreds of rows within a float-tie of each other in the first block —
-    the worst case for the packed-key extraction (truncated keys tie)."""
-    import numpy as np
-
-    n, d = 3072, 16
-    rng = np.random.default_rng(1)
-    q = rng.standard_normal((2, d)).astype(np.float32)
-    base = rng.standard_normal((n, d)).astype(np.float32)
-    t = np.linspace(1, 0, n, dtype=np.float32)[:, None] ** 2
-    W = (1 - t) * base + t * 40.0 * q[1]
-    W /= np.linalg.norm(W, axis=1, keepdims=True)
-    return W, q
-
-
-def test_topk_descending_scores_triggers_skips():
-    """exact_scan: top-k all in the FIRST block — later blocks must be
-    skipped yet still emit sentinel candidates that the merge ignores."""
-    import numpy as np
-    from anime_recommendations_tpu.ops.topk import masked_topk
-
-    W, q = _adversarial_tied_table()
-    vals, idx = masked_topk(
-        jnp.asarray(W), jnp.asarray(q), k=5, block_rows=512, exact_scan=True
-    )
-    scores = W @ q.T
-    vals, idx = np.asarray(vals), np.asarray(idx)
-    for i in range(2):
-        np.testing.assert_allclose(
-            vals[i], np.sort(scores[:, i])[::-1][:5], rtol=1e-6, atol=1e-7
-        )
-        np.testing.assert_allclose(scores[idx[i], i], vals[i], rtol=1e-6)
-
-
-def test_topk_two_stage_adversarial_ties_bounded():
-    """The default two-stage path on the tied table: returned values must be
-    the EXACT scores of real returned rows, within the truncated-key tie
-    window (~2^-9 relative) of the true optimum — the documented worst-case
-    deviation of the packed extraction (ops/topk.py module docstring)."""
-    import numpy as np
-    from anime_recommendations_tpu.ops.topk import masked_topk
-
-    W, q = _adversarial_tied_table()
-    vals, idx = masked_topk(jnp.asarray(W), jnp.asarray(q), k=5, block_rows=512)
-    scores = W @ q.T
-    vals, idx = np.asarray(vals), np.asarray(idx)
-    for i in range(2):
-        # Self-consistency: values are the true scores of the returned rows.
-        np.testing.assert_allclose(scores[idx[i], i], vals[i], rtol=1e-6)
-        # Near-optimality within the tie window.
-        oracle = np.sort(scores[:, i])[::-1][:5]
-        np.testing.assert_allclose(vals[i], oracle, rtol=4e-3, atol=1e-4)
-
-
 def test_midsize_table_between_group_and_block():
-    """Regression: 512 < n < 2048 with n not a 512-multiple used to raise
-    (block_rows=round_up(n,8) wasn't a GROUP multiple) on the kernel path —
-    the serving user table hits exactly this band on small corpora. The
-    block must round DOWN to a group multiple with the remainder scored by
-    the XLA tail."""
+    """Table sizes that are not multiples of any tile (the serving user
+    table on small corpora) return the exact top-k."""
     rng = np.random.default_rng(3)
     for n in (1147, 513, 1536, 2040):
         W = rng.standard_normal((n, 32)).astype(np.float32)
         W /= np.linalg.norm(W, axis=1, keepdims=True)
-        vals, idx = masked_topk(jnp.asarray(W), jnp.asarray(W[:3]), 5,
-                                interpret=True)
+        vals, idx = masked_topk(jnp.asarray(W), jnp.asarray(W[:3]), 5)
         sc = W[:3] @ W.T
         oracle = np.argsort(-sc, axis=1)[:, :5]
         np.testing.assert_array_equal(np.asarray(idx), oracle)
+
+
+# ---- the plain top-k against a float64 oracle --------------------------------
+
+
+def _oracle_case(n=700, d=32, qn=5, seed=40):
+    rng = np.random.default_rng(seed)
+    W = normed(rng.standard_normal((n, d))).astype(np.float32)
+    rows = rng.choice(n, qn, replace=False)
+    return W, rows, rng
+
+
+def _f64_oracle(W, Q, k, mask=None, exclude=None, head=None):
+    s = Q.astype(np.float64) @ W.astype(np.float64).T
+    if head is not None:
+        s = 1.0 / (1.0 + np.exp(-(head[0] * s + head[1])))
+    if mask is not None:
+        s[:, ~mask] = -np.inf
+    if exclude is not None:
+        s[np.arange(len(exclude)), exclude] = -np.inf
+    idx = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, idx, axis=1), idx
+
+
+@pytest.mark.parametrize("case", ["plain", "mask", "exclude", "head", "all"])
+def test_masked_topk_matches_float64_oracle(case):
+    W, rows, rng = _oracle_case()
+    Q = W[rows]
+    mask = rng.uniform(size=len(W)) > 0.3 if case in ("mask", "all") else None
+    excl = rows.astype(np.int32) if case in ("exclude", "all") else None
+    head = np.asarray([-1.7, 0.4], np.float32) if case in ("head", "all") else None
+    vals, idx = masked_topk(
+        jnp.asarray(W), jnp.asarray(Q), 9,
+        mask=None if mask is None else jnp.asarray(mask),
+        exclude=None if excl is None else jnp.asarray(excl),
+        head=None if head is None else jnp.asarray(head),
+        use_head=head is not None,
+    )
+    ref_v, ref_i = _f64_oracle(W, Q, 9, mask, excl, head)
+    np.testing.assert_array_equal(np.asarray(idx), ref_i)
+    np.testing.assert_allclose(np.asarray(vals), ref_v, rtol=0, atol=1e-6)
+
+
+def test_masked_topk_k_greater_than_n_pads_sentinels():
+    W, rows, _ = _oracle_case(n=6)
+    vals, idx = masked_topk(jnp.asarray(W), jnp.asarray(W[:2]), 9)
+    vals, idx = np.asarray(vals), np.asarray(idx)
+    assert vals.shape == idx.shape == (2, 9)
+    assert sorted(idx[0, :6].tolist()) == list(range(6))
+    assert (idx[:, 6:] == -1).all() and (vals[:, 6:] <= -1e29).all()
+
+
+def test_bf16_topk_matches_bf16_rounded_oracle():
+    """A bf16 table scores bf16 products exactly and accumulates in f32, so
+    it matches the oracle over the bf16-ROUNDED rows far inside bf16's own
+    rounding error."""
+    W, rows, _ = _oracle_case(n=900, d=64)
+    Wb = jnp.asarray(W, jnp.bfloat16)
+    wb = np.asarray(Wb.astype(jnp.float32))
+    vals, idx = cosine_topk(Wb, Wb[rows], 7)
+    ref_v, ref_i = _f64_oracle(wb, wb[rows], 7)
+    np.testing.assert_array_equal(np.asarray(idx), ref_i)
+    np.testing.assert_allclose(np.asarray(vals), ref_v, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_head", [False, True])
+def test_quantized_topk_rescore_equals_f32_result(use_head):
+    """The int8 pool, rescored in f32, returns exactly the f32 top-k —
+    also through a negative-slope head, which reverses the cosine order."""
+    from anime_recommendations_tpu.ops.quantized import quantize_rows, quantized_topk
+
+    W, rows, rng = _oracle_case(n=2500, d=64, qn=8)
+    mask = rng.uniform(size=len(W)) > 0.2
+    head = jnp.asarray([-2.1, 0.3], jnp.float32) if use_head else None
+    kw = dict(mask=jnp.asarray(mask), exclude=jnp.asarray(rows.astype(np.int32)),
+              head=head, use_head=use_head)
+    v8, i8 = quantized_topk(quantize_rows(jnp.asarray(W)), jnp.asarray(W[rows]),
+                            10, **kw)
+    v32, i32 = masked_topk(jnp.asarray(W), jnp.asarray(W[rows]), 10, **kw)
+    np.testing.assert_array_equal(np.asarray(i8), np.asarray(i32))
+    np.testing.assert_allclose(np.asarray(v8), np.asarray(v32), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("q,k", [(1, 10), (3, 300), (70, 10), (70, 40)])
+def test_chunked_top_k_equals_one_top_k(q, k):
+    """The chunked top-k (few rows, or large k) returns what one
+    lax.top_k returns, ties included; many rows with small k take the
+    single call."""
+    from anime_recommendations_tpu.ops.topk import _top_k
+
+    rng = np.random.default_rng(q + k)
+    s = rng.standard_normal((q, 1000)).astype(np.float32)
+    s[:, 500:540] = s[:, 100:140]          # exact ties across chunks
+    s[:, -3:] = -1e30                      # sentinels in the ragged chunk
+    v, i = _top_k(jnp.asarray(s), k)
+    rv, ri = jax.lax.top_k(jnp.asarray(s), k)
+    np.testing.assert_array_equal(np.asarray(v), np.asarray(rv))
+    np.testing.assert_array_equal(np.asarray(i), np.asarray(ri))

@@ -36,8 +36,8 @@ def test_artifact_frame_roundtrip(tmp_path):
     store.log_frame("t.csv", df, type="csv")
     out = pd.read_csv(store.get("t.csv:latest").file())
     pd.testing.assert_frame_equal(out, df)
-    store.log_frame("t.parquet", df, filename="t.parquet")
-    out = pd.read_parquet(store.get("t.parquet").file())
+    store.log_frame("t.pkl", df, filename="t.pkl")
+    out = pd.read_pickle(store.get("t.pkl").file())
     pd.testing.assert_frame_equal(out, df)
 
 
@@ -91,8 +91,8 @@ def finished_run(tmp_path_factory):
 def test_pipeline_artifacts_exist(finished_run):
     store = finished_run.store
     for name in [
-        "full_data_set.parquet", "all_anime.csv", "synopses.csv",
-        "preprocessed_stats.parquet", "anime_nn_model.npz",
+        "full_data_set.pkl", "all_anime.csv", "synopses.csv",
+        "preprocessed_stats.pkl", "anime_nn_model.npz",
         "anime_nn_history.csv", "neural_network_loss.png",
         "similar_users.csv", "ID_used.csv", "user_prefs.csv",
         "user_recs.csv", "model_recs.csv",

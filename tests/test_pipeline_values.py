@@ -39,7 +39,7 @@ def run_artifacts(finished_run):  # noqa: F811
     anime_ids = np.asarray(vocab["anime_ids"], np.int64)
     user_ids = np.asarray(vocab["user_ids"], np.int64)
     catalog = pd.read_csv(store.get("all_anime.csv:latest").file())
-    stats = pd.read_parquet(store.get("preprocessed_stats.parquet:latest").file())
+    stats = pd.read_pickle(store.get("preprocessed_stats.pkl:latest").file())
     return store, weights, user_ids, anime_ids, catalog, stats
 
 

@@ -108,9 +108,8 @@ def test_bf16_retrieval_context_close_to_f32(built):
 
 def test_cpu_hosted_context_matches_default(ratings_frame, anime_catalog_frame,
                                             synopses_frame):
-    """The serve host bench places the RecContext on the in-process CPU
-    device with interpret=False forced (bench.py serve_*_host_ms): results
-    must be identical to the default context's."""
+    """A RecContext placed explicitly on the CPU device (``device=``)
+    answers exactly like the default context."""
     import jax
 
     from anime_recommendations_tpu.data.catalog import Catalog
@@ -130,8 +129,7 @@ def test_cpu_hosted_context_matches_default(ratings_frame, anime_catalog_frame,
                                    encoded)
     with jax.default_device(cpu):
         cpu_ctx = RecContext.build(
-            params, tt.init_bn_state(), vocab, catalog, encoded,
-            device=cpu, topk_kwargs={"interpret": False},
+            params, tt.init_bn_state(), vocab, catalog, encoded, device=cpu,
         )
         name = catalog.anime["Name"].iloc[3]
         a = similar_anime(default_ctx, name, count=5)[0]

@@ -163,7 +163,7 @@ def test_measured_capacity_matches_default_capacity_losses():
 def test_sharded_bf16m_tracks_single_chip_bf16m():
     """fused_adam_bf16m on the mesh: the routed owner-side update adapts to
     the state's bf16 moment storage; loss curve tracks the single-chip
-    bf16m fit (both use the nearest-rounding interpret fallback on CPU)."""
+    bf16m fit (both round the moments stochastically)."""
     import jax.numpy as jnp
 
     train, holdout, n_users, n_anime = make_ds(seed=7)
